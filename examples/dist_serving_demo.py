@@ -4,7 +4,7 @@ over a device mesh (dp x tp) with the `parallel.sharded` engines.
 The reference scales by running one OpenCL context per device and
 hand-placing opcode instances (csound/opcode.cpp constructs a context
 per instance; csound/tests.py sweeps --device to bench each one). The
-TPU-native answer is a sharding, not a device loop: ONE jitted step over
+answer here is a sharding, not a device loop: ONE jitted step over
 a `jax.sharding.Mesh`, channels split across the data-parallel axis and
 each channel's partition ring split across the tensor-parallel axis,
 with XLA inserting the single O(pts) psum per block the tp contraction

@@ -1,4 +1,4 @@
-"""opencl_fft_tpu — a TPU-native audio-DSP framework.
+"""opencl_fft_tpu — an accelerator audio-DSP framework in JAX.
 
 A ground-up JAX/XLA rebuild of the capability surface of vlazzarini's
 OpenCL FFT/convolution library (see SURVEY.md for the complete component

@@ -3,8 +3,8 @@
 The reference's "models" are its audio processors — LTI convolution reverb
 (`clconv`) and time-varying convolution (`cltvconv`). This module packages
 them as batched, jit-first engines processing many channels at once — the
-deployment shape for TPU serving (a single channel underutilizes the chip;
-batch is the free axis).
+deployment shape for accelerator serving (a single channel underutilizes
+the device; batch is the free axis).
 
 ``TVConvolver`` is the flagship: per block it runs a batched dual forward
 real FFT, the frequency-delay-line MAC, inverse FFT and overlap-add — every
@@ -15,7 +15,6 @@ multi-chip path.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -48,16 +47,7 @@ def batched_state(cfg: _p.PconvConfig, batch: int) -> _p.PconvState:
 
 
 def _vmapped(fn, cfg):
-    """vmap a pconv step over the batch axis with shared ring pointers.
-
-    The Pallas block-step/MAC kernels are single-stream designs (the ring
-    window lives in an ANY-space block whose batched lowering Mosaic
-    rejects), so the batched engines always run the XLA step — which is
-    the right call anyway: many concurrent streams keep the MXU busy
-    through XLA's own batching, the kernels exist to win the
-    single-stream latency case (_tuned.WINNERS measurements)."""
-    if cfg.pallas != "off":
-        cfg = dataclasses.replace(cfg, pallas="off")
+    """vmap a pconv step over the batch axis with shared ring pointers."""
     in_axes = (_p.PconvState(
         spec_x_re=0, spec_x_im=0, spec_h_re=0, spec_h_im=0,
         tail=0, wp=None, wp2=None),)
@@ -91,8 +81,6 @@ class Convolver:
         self._push = jax.jit(_vmapped_push(cfg), donate_argnums=(0,))
         # jitted entry points are built ONCE — a fresh jax.jit wrapper per
         # call would re-trace/re-lower the whole scan program every time
-        # (seconds per call on this backend; only the executable cache
-        # would be hit)
         self._stream = jax.jit(
             functools.partial(_p.pconv_stream_batched, cfg),
             static_argnames=("unroll",), donate_argnums=(0,))
@@ -187,7 +175,8 @@ class Convolver:
         """Offline rendering: scan over (nblocks, batch, pts) on device.
 
         chunk > 1 groups that many blocks per fused pconv_chunk call
-        (bit-equal to per-block streaming; requires nblocks % chunk == 0
+        (equal to per-block streaming to f32 rounding — see
+        ops.pconv.pconv_chunk; requires nblocks % chunk == 0
         and chunk <= nparts)."""
         if self._xf is not None:
             raise RuntimeError(
@@ -205,30 +194,23 @@ class Convolver:
             out = out.swapaxes(1, 2).reshape(n, b, pts)
             return out
 
-        # pconv_stream_batched routes through the batched grid-streamed
-        # kernel when measured-on and falls back to the vmapped scan
         self.state, out = self._stream(self.state, blocks, unroll=unroll)
         return out
 
     def render(self, blocks: Float) -> Float:
         """Offline batched render: (nblocks, batch, pts) -> same shape.
 
-        Uses the chunk-MAC kernel path (ops/pallas/chunkmac.py): the MAC
-        is a pure sliding-window correlation over the precomputed frame
-        spectra, so the whole render is batched transforms + one kernel —
-        no sequential scan. Output matches stream() within f32 tolerance;
-        latency is the full render length (use step()/stream() for
-        bounded latency). Kernel selection follows _p._offline_impl:
-        chunkmac in its measured territory, the batched macflow kernel
-        for wide batches / deep nparts (r4); off both kernel paths it
-        falls back to stream()."""
+        The MAC is a pure sliding-window correlation over the
+        precomputed frame spectra, so the whole render is batched
+        transforms + one chunked gather-MAC — no sequential scan
+        (ops/pconv._offline_batched). Output matches stream() within f32
+        tolerance; latency is the full render length (use step()/stream()
+        for bounded latency)."""
         if self._xf is not None:
             raise RuntimeError(
                 "an IR crossfade is in progress — drive step() for the "
                 "remaining fade blocks before bulk rendering")
         blocks = jnp.asarray(blocks, jnp.float32)
-        if _p._offline_impl(self.cfg, self.batch) is None:
-            return self.stream(blocks)
         self.state, out = self._render(self.state, blocks)
         return out
 
@@ -263,8 +245,6 @@ def _vmapped_xfade(cfg):
     between their two exact convolutions. ``step`` shares one ramp across
     the batch (all channels of a set_ir call fade on the same schedule).
     """
-    if cfg.pallas != "off":
-        cfg = dataclasses.replace(cfg, pallas="off")
 
     def begin(state, irs, mask):
         xf = jax.vmap(lambda st, ir: _p.pconv_begin_xfade(cfg, st, ir),
@@ -316,11 +296,8 @@ class TVConvolver:
         return out
 
     def stream(self, blocks_x: Float, blocks_h: Float, unroll: int = 8) -> Float:
-        """Offline rendering over (nblocks, batch, pts) pairs.
-
-        pconv_stream_batched_tv routes through the batched TV
-        grid-streamed kernel (both rings VMEM-resident per channel) when
-        selected and falls back to the vmapped per-block scan."""
+        """Offline rendering over (nblocks, batch, pts) pairs (the vmapped
+        per-block TV scan)."""
         self.state, out = self._stream(self.state,
                                        jnp.asarray(blocks_x, jnp.float32),
                                        jnp.asarray(blocks_h, jnp.float32),
@@ -330,10 +307,8 @@ class TVConvolver:
     def stream_chunked(self, blocks_x: Float, blocks_h: Float,
                        K: int = 8) -> Float:
         """Latency-relaxed TV serving: (nblocks, batch, pts) pairs in
-        K-block chunks through pconv_stream_batched_tv_chunked — the
-        batched TV decomposed engine where the shape is structurally won
-        (long IR / huge bins), the per-block batched engine otherwise
-        (see the dispatch note on the op). Within f32 reduction-order
+        K-block chunks through pconv_stream_batched_tv_chunked (the
+        batched TV decomposed engine). Within f32 reduction-order
         tolerance of stream(); state chains exactly."""
         fn = self._stream_chunked_fns.get(K)
         if fn is None:

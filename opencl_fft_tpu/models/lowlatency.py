@@ -136,15 +136,14 @@ class ZeroLatencyConvolver:
     """
 
     def __init__(self, ir, block: int = 64, pmax: int = 1024,
-                 impl: str = "auto", pallas: str = "auto"):
+                 impl: str = "auto"):
         ir = np.asarray(ir, np.float32).reshape(-1)
         if ir.size < 1:
             raise ValueError("empty impulse response")
         self.ir_len = ir.size
         self.block = int(block)
         self.segments = plan_segments(ir.size, self.block, int(pmax))
-        self._head_cfg = _d.DconvConfig(irsize=self.block, vsize=self.block,
-                                        pallas=pallas)
+        self._head_cfg = _d.DconvConfig(irsize=self.block, vsize=self.block)
         head_ir = np.zeros(self.block, np.float32)
         head_ir[: min(self.block, ir.size)] = ir[: self.block]
         head = _d.push_ir(self._head_cfg, _d.dconv_init(self._head_cfg),
@@ -152,8 +151,7 @@ class ZeroLatencyConvolver:
         self._seg_cfgs = []
         seg_states = []
         for s in self.segments:
-            cfg = _p.PconvConfig(pts=s.pts, nparts=s.nparts, impl=impl,
-                                 pallas=pallas)
+            cfg = _p.PconvConfig(pts=s.pts, nparts=s.nparts, impl=impl)
             self._seg_cfgs.append(cfg)
             seg_ir = np.zeros(cfg.cvs, np.float32)
             chunk = ir[s.offset: s.offset + s.length]

@@ -1,11 +1,12 @@
 """Split-complex arithmetic: a complex tensor is a pair (re, im) of f32 arrays.
 
-The TPU backend in this environment implements no complex-dtype kernels
-(mul/dot/transpose on complex64 are UNIMPLEMENTED), and split storage is the
-faster layout on TPU regardless: both planes keep 128-lane-friendly shapes
-and complex matmuls become one real matmul against a 2x2 block matrix.
+The split form is the API's representation of complex data: the matmul
+FFT paths turn a complex matmul into one real matmul against a 2x2 block
+matrix, and the packed real-spectrum conventions of the reference
+(ops/rfft.py) are stated per plane. The default transform converts to
+complex64 internally (ops/fft.py).
 
-All functions are trivial VPU element-wise ops that XLA fuses away.
+All functions are trivial element-wise ops that XLA fuses away.
 """
 
 from __future__ import annotations

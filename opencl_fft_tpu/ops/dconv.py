@@ -1,4 +1,4 @@
-"""Direct time-domain FIR convolution with a delay line, TPU-native.
+"""Direct time-domain FIR convolution with a delay line.
 
 Capability parity with ``Cldconv`` (``cl_dconv.h:17-66``, ``cl_dconv.cpp``):
 a circular delay line of ``irsize + vsize`` samples; each block of ``vsize``
@@ -8,10 +8,10 @@ reversed coefficients (``cl_dconv.cpp:32-43``). A time-varying variant
 streams the second operand into the coefficient buffer with the same ring
 arithmetic (``cl_dconv.cpp:134-148``).
 
-TPU-first redesign: the per-(tap x sample) thread grid with CAS-loop float
-atomics (``cl_dconv.cpp:17-31,42``) becomes a single VALID cross-correlation
-(XLA convolution) over a rotated view of the ring — deterministic and MXU/
-VPU-friendly. The wrap-around write keeps the reference's ring arithmetic
+Redesign: the per-(tap x sample) thread grid with CAS-loop float atomics
+(``cl_dconv.cpp:17-31,42``) becomes a single VALID cross-correlation (a
+sliding-window matvec) over a rotated view of the ring — deterministic,
+one fused XLA program per block. The wrap-around write keeps the reference's ring arithmetic
 (including writes that straddle the end), but uses correct byte counts —
 the reference's short-read-after-wrap artifact (``cl_dconv.cpp:112-130``,
 SURVEY §8 Q3) is NOT reproduced.
@@ -43,36 +43,13 @@ class DconvConfig:
     irsize: int
     vsize: int
     delay_compat: bool = False
-    dtype: str = "f32"   # "f32" | "f64" (USE_DOUBLE parity; f64 is CPU-only)
-    pallas: str = "auto"  # whole-scan grid kernel: "auto" | "stream" | "off"
+    dtype: str = "f32"   # "f32" | "f64" (USE_DOUBLE parity; needs x64)
 
     def __post_init__(self):
         if self.irsize < 1 or self.vsize < 1:
             raise ValueError("irsize and vsize must be positive")
         if self.dtype not in ("f32", "f64"):
             raise ValueError(f"dtype must be 'f32'|'f64', got {self.dtype}")
-        if self.pallas not in ("auto", "stream", "off"):
-            raise ValueError(
-                f"pallas must be 'auto'|'stream'|'off', got {self.pallas}")
-
-    def _use_stream_kernel(self) -> bool:
-        """Whole-scan grid kernel (ops/pallas/dstream.py): LTI only,
-        lane-aligned block-multiple shapes. "stream" opts in explicitly
-        (interpret mode covers CPU); "auto" follows the measured winners
-        table on TPU backends, like the pconv kernels."""
-        from .pallas.dstream import fits_dstream
-        if self.pallas == "off" or self.dtype != "f32":
-            return False
-        if not fits_dstream(self.irsize, self.vsize):
-            return False
-        if self.pallas == "stream":
-            return True
-        import jax as _jax
-        if _jax.default_backend() == "cpu":
-            return False
-        from .pallas import _tuned
-        return _tuned.DCONV_WINNERS.get(
-            (self.irsize, self.vsize)) == "stream"
 
     @property
     def _jdtype(self):
@@ -160,10 +137,10 @@ def dconv_step(cfg: DconvConfig, state: DconvState, block: Float
     d = jnp.roll(delay, -wp)
     k = jnp.flip(state.coefs[: cfg.irsize])
     # Toeplitz-windows formulation: sliding windows of the delay line feed
-    # one matvec on the MXU. Windows are built with a tile/reshape trick —
-    # no gather (slow on TPU) and no XLA convolution (this backend takes
-    # minutes to compile long-kernel 1-D convs).
-    valid = _sliding_windows(d, cfg.vsize + 1, cfg.irsize) @ k   # (vsize+1,)
+    # one matvec, built with a tile/reshape trick (no gather). HIGHEST
+    # keeps the f32 product out of TF32 on GPUs that have it.
+    valid = jnp.dot(_sliding_windows(d, cfg.vsize + 1, cfg.irsize), k,
+                    precision=jax.lax.Precision.HIGHEST)         # (vsize+1,)
     # valid[n] = sum_h d[n+h] k[h]; the reference alignment is valid[:vsize]
     # (one sample late, see DconvConfig.delay_compat); standard FIR is the
     # window shifted by one so out[n] includes x[n]*coefs[0].
@@ -182,54 +159,10 @@ def dconv_step_tv(cfg: DconvConfig, state: DconvState, block_x: Float,
     return dconv_step(cfg, state._replace(coefs=coefs), block_x)
 
 
-def _dconv_stream_kernel(cfg: DconvConfig, state: DconvState, blocks: Float
-                         ) -> Tuple[DconvState, Float]:
-    """Whole-scan grid kernel path: Toeplitz slabs built once from the
-    coefficients, every block in ONE launch, ring state reconstructed
-    from the input blocks (the ring holds exactly the last P+1 blocks)."""
-    import jax as _jax
-
-    from .pallas.dstream import _STEP_GROUP, dstream_steps, toeplitz_slabs
-
-    nb = blocks.shape[0]
-    nb_k = nb - nb % _STEP_GROUP
-    p = cfg.irsize // cfg.vsize
-    off = 0 if cfg.delay_compat else 1
-    # rotated ring r[j] = delay[(wp+j) % ring] reads oldest -> newest;
-    # the last P*vsize samples are the context for the first new block
-    r = jnp.roll(state.delay, -state.wp)
-    carry0 = r[cfg.vsize:].reshape(p, cfg.vsize)
-    slabs = toeplitz_slabs(state.coefs, cfg.irsize, cfg.vsize, off)
-    outs = dstream_steps(blocks[:nb_k], carry0, slabs, cfg.vsize,
-                         interpret=_jax.default_backend() == "cpu")
-    # after nb_k writes the ring holds the last P+1 blocks, oldest first
-    # at the rotated origin wp_out
-    wp_out = (state.wp + nb_k * cfg.vsize) % cfg.ring
-    tail_blocks = jnp.concatenate(
-        [carry0.reshape(-1), blocks[:nb_k].reshape(-1)])[-cfg.ring:]
-    state = state._replace(delay=jnp.roll(tail_blocks, wp_out), wp=wp_out)
-    if nb_k == nb:
-        return state, outs
-
-    def body(st, blk):
-        return dconv_step(cfg, st, blk)
-    state, rest = jax.lax.scan(body, state, blocks[nb_k:])
-    return state, jnp.concatenate([outs, rest], axis=0)
-
-
 def dconv_stream(cfg: DconvConfig, state: DconvState, blocks: Float,
                  unroll: int = 8) -> Tuple[DconvState, Float]:
     """Run many LTI blocks through a lax.scan. blocks: (nblocks, vsize).
-
-    When the whole-scan grid kernel is selected (cfg._use_stream_kernel),
-    the stream runs as ONE pallas launch instead (ops/pallas/dstream.py).
-    Otherwise unroll amortizes the backend's per-iteration loop
-    overhead."""
-    from .pallas.dstream import _STEP_GROUP
-    if (jnp.ndim(blocks) == 2 and blocks.shape[0] >= _STEP_GROUP
-            and cfg._use_stream_kernel()):
-        return _dconv_stream_kernel(cfg, state, blocks)
-
+    ``unroll`` amortizes the per-iteration loop overhead."""
     def body(st, blk):
         return dconv_step(cfg, st, blk)
     return jax.lax.scan(body, state, blocks, unroll=unroll)

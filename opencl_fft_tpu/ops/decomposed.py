@@ -1,35 +1,25 @@
-"""Decomposed (batch-transform) streaming engine for long-IR shapes.
+"""Decomposed (batch-transform) streaming engine.
 
-The sequential per-block scan is the wrong shape for TPU whenever the
-whole block batch is known up front (which is exactly how the reference
-benchmark drives the engine — csound/tests.py renders 100 s of audio as
-fast as possible). The per-block chain pays, every block:
+When the whole block batch is known up front (offline render, chunked
+serving, the reference benchmark's 100 s renders — csound/tests.py),
+the sequential per-block scan is the wrong shape: every block pays one
+unbatched forward and one unbatched inverse transform, and the
+scan-carried ring state keeps XLA from batching anything across blocks.
 
-  * one unbatched forward rFFT per operand and one unbatched inverse —
-    at bins >= 4096 a single 2*bins-point transform is a multi-pass
-    matmul tree at batch ~1 whose cost is fixed (~60-200 us) regardless
-    of nparts, which is why the reference grid's M=8192/32768 rows sat
-    FLAT at ~920x real time (r3 sweep): the rows were transform-bound,
-    not MAC-bound;
-  * the scan-carried ring state, which keeps XLA from batching anything
-    across blocks.
-
-This module removes the sequential dependence entirely — the insight
-(shared with ops/pallas/chunkmac.py) is that the frequency-delay-line
+This module removes the sequential dependence — the frequency-delay-line
 MAC is a pure function of the frame-spectrum TIMELINES:
 
   1. forward-transform ALL blocks in one batched rFFT (both operands in
      one batch for TV — the batched analog of the reference's dual
      command queues, cl_conv.cpp:460-522);
-  2. run the MAC over the timelines (Pallas macflow kernel where
-     eligible, K-chunked XLA gathers otherwise);
+  2. run the MAC over the timelines as K-chunked XLA gathers;
   3. one batched inverse rFFT + a vectorized overlap-add;
   4. rebuild the ring state from the timeline tails (pure gathers).
 
 Outputs match the sequential scan to f32 reduction-order tolerance
 (each path sums the partition axis in a single deterministic order, but
-the orders differ). Use the scan (`pconv_stream*` without the
-decomposed route) when bit-equality with per-block streaming matters.
+the orders differ). Use the scan (`pconv_stream*`) when bit-equality
+with per-block streaming matters.
 
 TV pairing derivation (pinned by tests/test_decomposed.py against the
 sequential scan): the reference's dual-ring walk — input ring pointer
@@ -43,9 +33,7 @@ frame of block b (b < 0 meaning the pre-scan ring content):
 
 i.e. the pair (a, b) always satisfies a + b == t (mod nparts) with both
 frames drawn from the last nparts block times — a modular correlation
-of the two frame streams. The offset ((nparts-1-a) mod nparts) depends
-only on a, which is what makes the windowed kernel form contiguous
-(see pallas/macflow.py).
+of the two frame streams.
 
 (The closed form absorbs wp2's initial value: pconv_init sets
 wp2 = nparts-1, and push-order means H frames enter at decrementing
@@ -65,7 +53,7 @@ from .rfft import irfft_split
 Float = jax.Array
 
 # Outputs per XLA MAC chunk: bounds the materialized (K, nparts, bins)
-# gather windows. 8 matches the Pallas kernels' group size.
+# gather windows.
 _XLA_MAC_CHUNK = 8
 
 
@@ -112,8 +100,7 @@ def _chunked_mac(nb: int, bins: int, chunk_fn) -> Cplx:
 
 def _tv_mac_xla(cfg, xtl: Cplx, htl: Cplx, nb: int, b0: float,
                 wp2) -> Cplx:
-    """Chunked gather evaluation of the TV pairing (oracle + fallback
-    for shapes/phases the macflow kernel does not take).
+    """Chunked gather evaluation of the TV pairing.
 
     Timeline layout (both operands): row(f) = f + nparts - 1, rows
     [0, nparts-1) the pre-scan ring content, then the fresh frames.
@@ -150,7 +137,7 @@ def _tv_mac_xla(cfg, xtl: Cplx, htl: Cplx, nb: int, b0: float,
 
 def _lti_mac_xla(cfg, xtl: Cplx, h: Cplx, nb: int, b0: float) -> Cplx:
     """Chunked gather evaluation of the LTI sliding-window MAC
-    (acc[t] = sum_q xtl[t+q] (*) h[q]) — fallback for nparts < 8."""
+    (acc[t] = sum_q xtl[t+q] (*) h[q])."""
     np_, bins = cfg.nparts, cfg.bins
     k = _XLA_MAC_CHUNK
     pad = -(-nb // k) * k - nb + np_
@@ -174,12 +161,6 @@ def _lti_mac_xla(cfg, xtl: Cplx, h: Cplx, nb: int, b0: float) -> Cplx:
     return _chunked_mac(nb, bins, chunk)
 
 
-def _use_macflow(cfg) -> bool:
-    from .pallas.macflow import fits_macflow
-    return (cfg.pallas != "off" and cfg._kernel_eligible()
-            and fits_macflow(cfg.nparts, cfg.bins))
-
-
 def stream_batched_tv_decomposed(cfg, state, blocks_x: Float,
                                  blocks_h: Float
                                  ) -> Tuple["PconvState", Float]:  # noqa: F821
@@ -188,10 +169,9 @@ def stream_batched_tv_decomposed(cfg, state, blocks_x: Float,
     SHARED scalar ring pointers (models.convolver.batched_state layout).
 
     The per-channel analog of stream_decomposed's TV path: one batched
-    forward over all (block, operand, channel) frames, the TV pairing
-    MAC per channel (macflow_tv_batched behind the phase lax.cond, the
-    vmapped gather fallback otherwise), one batched inverse + OLA, and
-    per-channel ring rebuilds with the shared pointer walk.
+    forward over all (block, operand, channel) frames, the vmapped TV
+    pairing gather-MAC, one batched inverse + OLA, and per-channel ring
+    rebuilds with the shared pointer walk.
     """
     from . import pconv as P
     from .fft import exact_precision
@@ -229,32 +209,10 @@ def stream_batched_tv_decomposed(cfg, state, blocks_x: Float,
     htl_r = jnp.concatenate([h0_r, fhr], axis=1)
     htl_i = jnp.concatenate([h0_i, fhi], axis=1)
 
-    if _use_macflow(cfg):
-        from .pallas.macflow import macflow_tv_batched
-
-        def _kernel_branch(ops):
-            (xr, xi), (hr, hi), wp2 = ops
-            c = ((np_ - 1 - wp2) % np_).astype(jnp.int32)
-            kr, ki = macflow_tv_batched(
-                (xr, xi), (hr, hi), nb, np_, b0, c,
-                interpret=jax.default_backend() == "cpu")
-            return kr[:, :nb], ki[:, :nb]
-
-        def _xla_branch(ops):
-            (xr, xi), (hr, hi), wp2 = ops
-            return jax.vmap(
-                lambda a, b_, g, h_: _tv_mac_xla(
-                    cfg, (a, b_), (g, h_), nb, b0, wp2))(xr, xi, hr, hi)
-
-        ops = ((xtl_r, xtl_i), (htl_r, htl_i), state.wp2)
-        acc_r, acc_i = jax.lax.cond(
-            state.wp2 % 8 == (np_ - 1) % 8,
-            _kernel_branch, _xla_branch, ops)
-    else:
-        acc_r, acc_i = jax.vmap(
-            lambda a, b_, g, h_: _tv_mac_xla(
-                cfg, (a, b_), (g, h_), nb, b0, state.wp2))(
-            xtl_r, xtl_i, htl_r, htl_i)
+    acc_r, acc_i = jax.vmap(
+        lambda a, b_, g, h_: _tv_mac_xla(
+            cfg, (a, b_), (g, h_), nb, b0, state.wp2))(
+        xtl_r, xtl_i, htl_r, htl_i)
 
     with exact_precision():
         y = irfft_split((acc_r, acc_i), cfg.impl)     # (B, nb, 2*pts)
@@ -326,49 +284,15 @@ def stream_decomposed(cfg, state, blocks_x: Float,
     old_r, old_i = _x_prefix_rows(cfg, state)
     xtl_r = jnp.concatenate([old_r.astype(f32), fxr], axis=0)
     xtl_i = jnp.concatenate([old_i.astype(f32), fxi], axis=0)
-    use_kernel = _use_macflow(cfg)
     if tv:
         h0_r, h0_i = _h_prefix_rows(cfg, state)
         htl_r = jnp.concatenate([h0_r.astype(f32), fhr], axis=0)
         htl_i = jnp.concatenate([h0_i.astype(f32), fhi], axis=0)
-        if use_kernel:
-            # The kernel's DMA row starts are 8-aligned only when the
-            # coefficient-ring phase c = (np-1-wp2) mod np is ≡ 0
-            # (mod 8) — true for every fresh stream (pconv_init sets
-            # wp2 = np-1) and preserved by any chain of calls whose
-            # block counts are multiples of 8. The phase is traced, so
-            # route with a lax.cond: the gather fallback only compiles
-            # (compactly, as a scan) and only runs off-phase.
-            from .pallas.macflow import macflow_tv
-
-            def _kernel_branch(ops):
-                (xr, xi), (hr, hi), wp2 = ops
-                c = ((np_ - 1 - wp2) % np_).astype(jnp.int32)
-                kr, ki = macflow_tv(
-                    (xr, xi), (hr, hi), nb, np_, b0, c,
-                    interpret=jax.default_backend() == "cpu")
-                return kr[:nb], ki[:nb]
-
-            def _xla_branch(ops):
-                xtl_, htl_, wp2 = ops
-                return _tv_mac_xla(cfg, xtl_, htl_, nb, b0, wp2)
-
-            ops = ((xtl_r, xtl_i), (htl_r, htl_i), state.wp2)
-            acc_r, acc_i = jax.lax.cond(
-                state.wp2 % 8 == (np_ - 1) % 8,
-                _kernel_branch, _xla_branch, ops)
-        else:
-            acc_r, acc_i = _tv_mac_xla(
-                cfg, (xtl_r, xtl_i), (htl_r, htl_i), nb, b0, state.wp2)
+        acc_r, acc_i = _tv_mac_xla(
+            cfg, (xtl_r, xtl_i), (htl_r, htl_i), nb, b0, state.wp2)
     else:
         h = (state.spec_h_re.astype(f32), state.spec_h_im.astype(f32))
-        if use_kernel:
-            from .pallas.macflow import macflow_lti
-            acc_r, acc_i = macflow_lti(
-                (xtl_r, xtl_i), h, nb, b0,
-                interpret=jax.default_backend() == "cpu")
-        else:
-            acc_r, acc_i = _lti_mac_xla(cfg, (xtl_r, xtl_i), h, nb, b0)
+        acc_r, acc_i = _lti_mac_xla(cfg, (xtl_r, xtl_i), h, nb, b0)
     acc_r, acc_i = acc_r[:nb], acc_i[:nb]
 
     # 3. batched inverse + vectorized overlap-add

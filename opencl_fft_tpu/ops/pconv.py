@@ -1,4 +1,4 @@
-"""Uniform partitioned fast convolution (frequency-delay-line), TPU-native.
+"""Uniform partitioned fast convolution (frequency-delay-line).
 
 Capability parity with ``Clpconv`` (``cl_conv.h:124-188``, ``cl_conv.cpp``):
 a length-``cvs`` convolution split into ``nparts = cvs/pts`` spectral
@@ -8,7 +8,7 @@ with one-partition latency. Covers the LTI path (IR preloaded via
 (``cl_conv.cpp:393-458``) and the time-varying path where both operands are
 streamed (``cl_conv.cpp:460-548``).
 
-TPU-first redesign (not a translation):
+Redesign for a batched accelerator (not a translation):
   * All streaming state is an explicit, device-resident pytree
     (``PconvState``) — the per-block host<->device copies of the reference
     (``cl_conv.cpp:399,455``) shrink to one ``pts``-sample block in/out, and
@@ -39,10 +39,12 @@ the reference bit-for-bit (SURVEY §8 policy: replicate documented behavior —
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ..utils.numerics import is_pow2
 from .cplx import Cplx
@@ -65,12 +67,11 @@ class PconvConfig:
     nparts: int
     bin0_mode: str = "exact"
     impl: str = "auto"
-    pallas: str = "auto"   # fused MAC kernel: "auto" | "on" | "off"
     ring_dtype: str = "f32"  # spectral-ring storage: "f32" | "bf16"
     # bf16 halves the ring bandwidth (the streaming bottleneck for long
     # IRs) at ~1e-3 relative output error; products still accumulate in f32.
     dtype: str = "f32"     # compute width: "f32" | "f64" (USE_DOUBLE parity,
-    # macos-build.sh:5). f64 is CPU-only (needs jax_enable_x64).
+    # macos-build.sh:5). f64 needs jax_enable_x64.
 
     def __post_init__(self):
         if not is_pow2(self.pts) or self.pts < 2:
@@ -79,11 +80,6 @@ class PconvConfig:
             raise ValueError(f"need at least one partition, got {self.nparts}")
         if self.bin0_mode not in ("exact", "compat"):
             raise ValueError(f"bin0_mode must be 'exact' or 'compat', got {self.bin0_mode}")
-        if self.pallas not in ("auto", "on", "off", "block", "blockf",
-                               "stream", "split", "macflow"):
-            raise ValueError(
-                f"pallas must be 'auto'|'on'|'off'|'block'|'blockf'|"
-                f"'stream'|'split'|'macflow', got {self.pallas}")
         if self.ring_dtype not in ("f32", "bf16"):
             raise ValueError(f"ring_dtype must be 'f32'|'bf16', got {self.ring_dtype}")
         if self.dtype not in ("f32", "f64"):
@@ -100,126 +96,6 @@ class PconvConfig:
         if self.ring_dtype == "bf16":
             return jnp.bfloat16
         return self._jdtype
-
-    def _kernel_eligible(self) -> bool:
-        if self.ring_dtype != "f32" or self.dtype != "f32":
-            return False
-        if self.pallas == "auto":
-            # auto never routes to Mosaic off-TPU; explicit "on"/"block"
-            # stay honest for interpret-mode tests
-            import jax
-            return jax.default_backend() != "cpu"
-        return True
-
-    def _use_pallas_mac(self) -> bool:
-        from .pallas.mac import fits_vmem
-        if (not self._kernel_eligible()
-                or not fits_vmem(self.nparts, self.bins)):
-            return False
-        if self.pallas == "on":
-            return True
-        if self.pallas == "auto":
-            from .pallas import _tuned
-            return _tuned.WINNERS.get((self.nparts, self.bins)) == "on"
-        return False
-
-    def _use_pallas_blockstep(self) -> bool:
-        """Fused block-step kernel (MAC + bin0 + inverse pre-process).
-
-        "block" opts in explicitly; "auto" follows the measured A/B table
-        (tools/autotune_blockstep.py, interleaved on the target chip) and
-        falls back to XLA for unmeasured shapes — the winner is data, not
-        a hardcoded comment (VERDICT r1 #4).
-        """
-        from .pallas.blockstep import fits_vmem_blockstep
-        if not self._kernel_eligible():
-            return False
-        if not fits_vmem_blockstep(self.nparts, self.bins):
-            return False
-        if self.pallas == "block":
-            return True
-        if self.pallas == "auto":
-            from .pallas import _tuned
-            return _tuned.WINNERS.get((self.nparts, self.bins)) == "block"
-        return False
-
-    def _use_pallas_blockstep_fwd(self) -> bool:
-        """FULLY fused block-step kernel (forward rFFT + MAC + inverse +
-        OLA in one launch, ops/pallas/blockstep.block_step_fwd_fused).
-
-        "blockf" opts in explicitly; "auto" follows the measured winners
-        table like the other kernel modes."""
-        from .pallas.blockstep import fits_vmem_blockstep
-        if not self._kernel_eligible():
-            return False
-        if not fits_vmem_blockstep(self.nparts, self.bins):
-            return False
-        if self.pallas == "blockf":
-            return True
-        if self.pallas == "auto":
-            from .pallas import _tuned
-            return _tuned.WINNERS.get((self.nparts, self.bins)) == "blockf"
-        return False
-
-    def _stream_kernel_impl(self, tv: bool = False):
-        """Which grid-streamed scan kernel carries a whole-scan launch:
-        None (scan fallback), "classic" (dense-table streamstep.py) or
-        "split" (half-table splitstep.py — the factored tables fit
-        bins=2048 where the dense ones cannot).
-
-        Only reachable through ``pconv_stream``/``_tv`` (they need the
-        whole block batch). "stream"/"split" opt in explicitly; "auto"
-        follows the measured winners table like the other kernel modes.
-        The TV kernels keep the h ring resident too, so each impl has a
-        tighter TV gate — at shapes where only the LTI kernel fits
-        (e.g. nparts=4096, bins=512), TV falls back to the scan."""
-        from .pallas.splitstep import (fits_vmem_splitstep,
-                                       fits_vmem_splitstep_tv)
-        from .pallas.streamstep import (fits_vmem_streamstep,
-                                        fits_vmem_streamstep_tv)
-        if not self._kernel_eligible():
-            return None
-        fits_c = fits_vmem_streamstep_tv if tv else fits_vmem_streamstep
-        fits_s = fits_vmem_splitstep_tv if tv else fits_vmem_splitstep
-        classic = fits_c(self.nparts, self.bins)
-        split = fits_s(self.nparts, self.bins)
-        if self.pallas == "stream":
-            return "classic" if classic else ("split" if split else None)
-        if self.pallas == "split":
-            return "split" if split else None
-        if self.pallas == "auto":
-            from .pallas import _tuned
-            tag = _tuned.WINNERS.get((self.nparts, self.bins))
-            if tag == "stream" and classic:
-                return "classic"
-            if tag == "split" and split:
-                return "split"
-        return None
-
-    def _use_stream_kernel(self, tv: bool = False) -> bool:
-        return self._stream_kernel_impl(tv=tv) is not None
-
-    def _use_decomposed_stream(self, tv: bool = False) -> bool:
-        """Route whole-batch streaming through the decomposed engine
-        (ops/decomposed.py: batched transforms + HBM-streamed MAC).
-
-        "macflow" opts in explicitly (incl. interpret-mode tests).
-        "auto" takes it only where the resident whole-scan kernels do
-        NOT fit — the long-IR / huge-bins territory the r3 sweep left
-        on the scan — and the shape is structurally won: either the
-        macflow kernel takes it (per-block HBM traffic drops 8x vs any
-        per-block path), or bins >= 4096, where the scan is bound by
-        ~L-independent unbatched per-block transforms (the flat
-        M=8192/32768 rows) and transform batching alone dominates."""
-        from .pallas.macflow import fits_macflow
-        if self.pallas == "macflow":
-            return True
-        if self.pallas != "auto" or not self._kernel_eligible():
-            return False
-        if self._use_stream_kernel(tv=tv):
-            return False
-        return (fits_macflow(self.nparts, self.bins)
-                or self.bins >= 4096)
 
     @property
     def bins(self) -> int:
@@ -246,8 +122,8 @@ class PconvState(NamedTuple):
 
     The input ring is stored DOUBLED (2*nparts rows; each frame written at
     wp and wp+nparts), so the per-block frequency-delay-line MAC reads one
-    contiguous dynamic_slice window instead of a modulo gather — a plain
-    vector load on TPU. Costs one extra bins-row write per block.
+    contiguous dynamic_slice window instead of a modulo gather. Costs one
+    extra bins-row write per block.
     """
 
     spec_x_re: Float  # (2*nparts, bins) doubled input spectral ring
@@ -274,10 +150,58 @@ def pconv_init(cfg: PconvConfig) -> PconvState:
     )
 
 
-# Above this partition size the one-matmul forward's (pts, 2*pts) table
-# (8*pts^2 bytes) stops fitting VMEM as a hoisted loop invariant and the
-# per-block table traffic exceeds the transform chain's cost.
+# Largest partition size whose forward transform runs as the one-matmul
+# table below (8*pts^2 bytes of table: 8 MiB at pts=1024, 32 MiB at 2048).
 _FWD_MM_MAX_PTS = 2048
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_matrix_np(m: int) -> np.ndarray:
+    """(2m, 2m) matrix U with [re | im] @ U == rfft.pack_forward of the
+    split half-size spectrum.
+
+    The pack is LINEAR in (re, im): the flip is a one-hot permutation,
+    twiddles are diagonals and the special bins are column replacements,
+    so the whole pass folds into one f64-precomputed matrix."""
+    i = np.arange(m, dtype=np.float64)
+    w = np.exp(-1j * np.pi * i / m)
+    dr, di = np.diag(w.real), np.diag(w.imag)
+    eye = np.eye(m)
+    p = np.zeros((m, m))
+    p[(-np.arange(m)) % m, np.arange(m)] = 1.0
+    # pack_forward: outr_ = 0.5(fi+im) [im-part], outi_ = 0.5(fr-re)
+    a_rr = 0.5 * (eye + p) - 0.5 * (p - eye) @ di
+    a_ir = 0.5 * (p + eye) @ dr
+    a_ri = 0.5 * (p - eye) @ dr
+    a_ii = 0.5 * (eye - p) + 0.5 * (p + eye) @ di
+    u = np.block([[a_rr, a_ri], [a_ir, a_ii]])
+    u[:, 0] = 0.0                         # outr[0] = (re0 + im0) / 2
+    u[:, m] = 0.0                         # outi[0] = (re0 - im0) / 2
+    u[0, 0] = u[m, 0] = u[0, m] = 0.5
+    u[m, m] = -0.5
+    u[:, m // 2] = 0.0                    # untouched conjugate bin
+    u[:, m + m // 2] = 0.0
+    u[m // 2, m // 2] = 1.0
+    u[m + m // 2, m + m // 2] = 1.0
+    return u
+
+
+@functools.lru_cache(maxsize=None)
+def _wfwd_np(pts: int) -> np.ndarray:
+    """(pts, 2*pts) matrix: block @ W == the ENTIRE unnormalized forward
+    rFFT of the zero-padded frame (deinterleave + half-size DFT + pack),
+    split [re | im]. Deinterleaving a zero-padded frame is a row
+    selection of the split-complex DFT matrix, so the chain is one f64
+    product."""
+    m = pts
+    jk = np.outer(np.arange(m, dtype=np.float64), np.arange(m, dtype=np.float64))
+    w = np.exp(-2j * np.pi * jk / m)
+    blockm = np.block([[w.real, w.imag], [-w.imag, w.real]])   # (2m, 2m) f64
+    f = np.zeros((pts, 2 * m))
+    k = np.arange(pts)
+    f[k % 2 == 0] = blockm[(k[k % 2 == 0]) // 2]
+    f[k % 2 == 1] = blockm[m + (k[k % 2 == 1] - 1) // 2]
+    return (f @ _pack_matrix_np(m)).astype(np.float32)
 
 
 def _forward_partition(cfg: PconvConfig, block: Float) -> Cplx:
@@ -287,27 +211,17 @@ def _forward_partition(cfg: PconvConfig, block: Float) -> Cplx:
     buffer as it reads (cl_conv_kernels.h:51), so the second half of every
     2*pts-point frame is zero. Here the pad is explicit.
 
-    For f32 engines with pts <= _FWD_MM_MAX_PTS the whole chain
-    (zero-pad -> deinterleave -> half-size complex DFT -> pack) collapses
-    into ONE f64-precomputed (pts, 2*bins) matmul — the same fused table
-    the blockf kernel uses (pallas/blockstep._wfwd_np). XLA hoists the
-    loop-invariant table into VMEM across streaming scans, so the
-    per-block cost is one tiny MXU dot: measured 0.9 us/block vs 13.1 for
-    the factored transform chain at the headline config
-    (bench_results/fwd_mm_ab.json). Matches the chain to ~1e-6 relative.
+    For f32 engines with pts <= _FWD_MM_MAX_PTS and impl "auto"/"mm" the
+    whole chain (zero-pad -> deinterleave -> half-size complex DFT ->
+    pack) is ONE f64-precomputed (pts, 2*bins) matmul at full f32
+    precision (HIGHEST: no TF32). It matches the transform chain to ~1e-6
+    relative. An explicit impl="xla"/"stockham"/... runs the requested
+    transform, matching the inverse side (irfft_split(acc, cfg.impl)).
     """
     from .fft import exact_precision
 
-    # honor an explicit FFT implementation choice: the fused-table
-    # shortcut is only the DEFAULT ("auto"/"mm" — it IS a matmul
-    # evaluation of the same chain); impl="xla"/"stockham"/... must
-    # actually run the requested transform, matching the inverse side
-    # (irfft_split(acc, cfg.impl)) so the engine's impl knob stays
-    # symmetric
     if (cfg.bins == cfg.pts and cfg._jdtype == jnp.float32
             and cfg.pts <= _FWD_MM_MAX_PTS and cfg.impl in ("auto", "mm")):
-        from .pallas.blockstep import _wfwd_np
-
         w = jnp.asarray(_wfwd_np(cfg.pts))
         z = jnp.dot(jnp.asarray(block, jnp.float32), w,
                     precision=jax.lax.Precision.HIGHEST)
@@ -349,14 +263,6 @@ def _spectral_mac(cfg: PconvConfig, state: PconvState, rp: Float) -> Cplx:
     """
     np_ = cfg.nparts
     b0_scale = 2.0 if cfg.bin0_mode == "exact" else 1.0
-    if cfg._use_pallas_mac():
-        import jax as _jax
-
-        from .pallas.mac import spectral_mac
-        return spectral_mac(
-            (state.spec_x_re, state.spec_x_im),
-            (state.spec_h_re, state.spec_h_im), rp, b0_scale,
-            interpret=_jax.default_backend() == "cpu")
     # doubled ring: rows [rp, rp+nparts) are exactly frames (rp+q) % nparts
     f32 = cfg._jdtype
     z = jnp.asarray(0, rp.dtype)
@@ -389,19 +295,7 @@ def _inverse_and_ola(cfg: PconvConfig, state: PconvState, acc: Cplx
 
 def _mac_inverse_ola(cfg: PconvConfig, state: PconvState, rp: Float
                      ) -> Tuple[Float, Float]:
-    """MAC + inverse + overlap-add, routed through the fused Pallas
-    block-step kernel when the config selects it (see
-    PconvConfig._use_pallas_blockstep)."""
-    if cfg._use_pallas_blockstep():
-        import jax as _jax
-
-        from .pallas.blockstep import block_step_fused
-
-        b0 = 2.0 if cfg.bin0_mode == "exact" else 1.0
-        return block_step_fused(
-            (state.spec_x_re, state.spec_x_im),
-            (state.spec_h_re, state.spec_h_im), rp, b0, state.tail,
-            cfg.pts, interpret=_jax.default_backend() == "cpu")
+    """MAC + inverse + overlap-add."""
     acc = _spectral_mac(cfg, state, rp)
     return _inverse_and_ola(cfg, state, acc)
 
@@ -418,21 +312,6 @@ def pconv_step(cfg: PconvConfig, state: PconvState, block: Float
                ) -> Tuple[PconvState, Float]:
     """One LTI streaming block: Clpconv::convolution(out, in) parity
     (cl_conv.cpp:393-458). block: (pts,) -> out: (pts,)."""
-    if cfg._use_pallas_blockstep_fwd():
-        import jax as _jax
-
-        from .pallas.blockstep import block_step_fwd_fused
-
-        b0 = 2.0 if cfg.bin0_mode == "exact" else 1.0
-        rp = (state.wp + 1) % cfg.nparts
-        out, tail, fxr, fxi = block_step_fwd_fused(
-            block, (state.spec_x_re, state.spec_x_im),
-            (state.spec_h_re, state.spec_h_im), rp, b0, state.tail,
-            cfg.pts, interpret=_jax.default_backend() == "cpu")
-        return state._replace(
-            spec_x_re=_ring_write2(state.spec_x_re, fxr, state.wp, cfg.nparts),
-            spec_x_im=_ring_write2(state.spec_x_im, fxi, state.wp, cfg.nparts),
-            wp=rp, tail=tail), out
     xr, xi = _forward_partition(cfg, block)
     spec_x_re = _ring_write2(state.spec_x_re, xr, state.wp, cfg.nparts)
     spec_x_im = _ring_write2(state.spec_x_im, xi, state.wp, cfg.nparts)
@@ -447,28 +326,6 @@ def pconv_step_tv(cfg: PconvConfig, state: PconvState, block_x: Float,
     """One time-varying block: Clpconv::convolution(out, in1, in2) parity
     (cl_conv.cpp:460-548). The reference's dual command queues become one
     batched forward transform (leading dim 2)."""
-    if cfg._use_pallas_blockstep_fwd():
-        import jax as _jax
-
-        from .pallas.blockstep import block_step_fwd_fused_tv
-
-        b0 = 2.0 if cfg.bin0_mode == "exact" else 1.0
-        rp = (state.wp + 1) % cfg.nparts
-        blocks = jnp.stack([jnp.asarray(block_x, jnp.float32),
-                            jnp.asarray(block_h, jnp.float32)])
-        out, tail, fxr, fxi, fhr, fhi = block_step_fwd_fused_tv(
-            blocks, (state.spec_x_re, state.spec_x_im),
-            (state.spec_h_re, state.spec_h_im), rp, state.wp2, b0,
-            state.tail, cfg.pts, interpret=_jax.default_backend() == "cpu")
-        z0 = jnp.asarray(0, state.wp2.dtype)
-        return state._replace(
-            spec_x_re=_ring_write2(state.spec_x_re, fxr, state.wp, cfg.nparts),
-            spec_x_im=_ring_write2(state.spec_x_im, fxi, state.wp, cfg.nparts),
-            spec_h_re=jax.lax.dynamic_update_slice(
-                state.spec_h_re, fhr[None], (state.wp2, z0)),
-            spec_h_im=jax.lax.dynamic_update_slice(
-                state.spec_h_im, fhi[None], (state.wp2, z0)),
-            wp=rp, wp2=(state.wp2 - 1) % cfg.nparts, tail=tail), out
     both = jnp.stack([jnp.asarray(block_x, cfg._jdtype),
                       jnp.asarray(block_h, cfg._jdtype)])
     fr, fi = _forward_partition(cfg, both)            # (2, bins) [tv]
@@ -558,7 +415,10 @@ def pconv_chunk(cfg: PconvConfig, state: PconvState, blocks: Float
                 ) -> Tuple[PconvState, Float]:
     """Process K consecutive LTI blocks in one fused call (K <= nparts).
 
-    Bit-equivalent to K sequential pconv_step calls but with one batched
+    Equal to K sequential pconv_step calls to f32 rounding: bit-equal when
+    both run op by op on the CPU backend (tests/test_pconv.py), 3.0e-7 of
+    max|out| apart when both are jitted on an H100 (chip_smoke.py), where
+    the batched transforms round differently. Uses one batched
     forward/inverse transform pair and a vectorized overlap-add — the
     middle ground between per-block streaming (pts-sample latency) and
     convolve_oneshot (whole-signal latency). Latency becomes K blocks.
@@ -602,8 +462,8 @@ def pconv_chunk(cfg: PconvConfig, state: PconvState, blocks: Float
     # one batched sliding-window MAC: windows[k, q] = timeline[k + q],
     # acc[k] = sum_q windows[k, q] (*) h[q] — replaces the K-iteration
     # Python loop (K separate MAC+reduce chains) with a single gather +
-    # broadcast-multiply + reduce. Same multiply-then-sum structure, so
-    # outputs stay bit-equal to sequential steps.
+    # broadcast-multiply + reduce, with the same multiply-then-sum
+    # structure as the sequential MAC.
     widx = jnp.arange(k)[:, None] + jnp.arange(np_)[None, :]   # (K, np)
     wr = jnp.take(cr, widx, axis=0)                            # (K, np, bins)
     wi = jnp.take(ci, widx, axis=0)
@@ -636,7 +496,8 @@ def pconv_chunk_tv(cfg: PconvConfig, state: PconvState, blocks_x: Float,
                    blocks_h: Float) -> Tuple[PconvState, Float]:
     """Process K consecutive TIME-VARYING blocks in one fused call.
 
-    Bit-equivalent to K sequential pconv_step_tv calls. The input-ring
+    Equal to K sequential pconv_step_tv calls to f32 rounding (see
+    pconv_chunk). The input-ring
     timeline works exactly as in pconv_chunk; the coefficient ring rotates
     the other way (wp2--, cl_conv.cpp:519), so for block k of the chunk,
     slot q holds the chunk's own h-frame d = (wp2 - q) mod nparts when
@@ -720,449 +581,79 @@ def pconv_chunk_tv(cfg: PconvConfig, state: PconvState, blocks_x: Float,
 # benchmarks and the models layer.
 # ---------------------------------------------------------------------------
 
-def _pconv_stream_kernel(cfg: PconvConfig, state: PconvState, blocks: Float
-                         ) -> Tuple[PconvState, Float]:
-    """Whole-scan grid kernel: translate the doubled ring to the kernel's
-    window layout (one dynamic_slice), run every block in ONE launch with
-    all state VMEM-resident (pallas/streamstep.py), translate back (one
-    dynamic roll). Per-block semantics identical to pconv_step."""
-    import jax as _jax
-
-    from .pallas.splitstep import stream_steps_fused_split
-    from .pallas.streamstep import (_STEP_GROUP, max_scan_blocks,
-                                    stream_steps_fused)
-
-    is_split = cfg._stream_kernel_impl() == "split"
-    fused = stream_steps_fused_split if is_split else stream_steps_fused
-
-    nb = blocks.shape[0]
-    nb_k = nb - nb % _STEP_GROUP           # kernel takes whole groups
-    np_, b = cfg.nparts, cfg.bins
-    b0 = 2.0 if cfg.bin0_mode == "exact" else 1.0
-    z = jnp.asarray(0, state.wp.dtype)
-    # window row q = frame (wp0 + q): doubled-ring rows [wp0, wp0+nparts)
-    w0r = jax.lax.dynamic_slice(state.spec_x_re, (state.wp, z), (np_, b))
-    w0i = jax.lax.dynamic_slice(state.spec_x_im, (state.wp, z), (np_, b))
-    # long scans run as segments within the per-launch scoped-VMEM output
-    # budget (streamstep.max_scan_blocks); the kernel's final window/tail
-    # state is exactly the next segment's initial state
-    seg = max_scan_blocks(np_, b, split=is_split)
-    interp = _jax.default_backend() == "cpu"
-    w, tail = (w0r, w0i), state.tail
-    outs_parts = []
-    for s0 in range(0, nb_k, seg):
-        outs_s, w, tail = fused(
-            blocks[s0:min(nb_k, s0 + seg)], w,
-            (state.spec_h_re, state.spec_h_im), b0, tail, cfg.pts,
-            interpret=interp)
-        outs_parts.append(outs_s)
-    (wfr, wfi), tailf = w, tail
-    outs = (outs_parts[0] if len(outs_parts) == 1
-            else jnp.concatenate(outs_parts, axis=0))
-    wp_out = (state.wp + nb_k) % np_
-    # final window row q holds frame (wp_out + q): ring[r] = W[(r - wp_out)]
-    ring_r = jnp.roll(wfr, wp_out, axis=0)
-    ring_i = jnp.roll(wfi, wp_out, axis=0)
-    state = state._replace(
-        spec_x_re=jnp.concatenate([ring_r, ring_r], axis=0),
-        spec_x_im=jnp.concatenate([ring_i, ring_i], axis=0),
-        tail=tailf, wp=wp_out)
-    if nb_k == nb:
-        return state, outs
-    # remainder blocks (< _STEP_GROUP) through the per-block step
-    def body(st, blk):
-        return pconv_step(cfg, st, blk)
-    state, rest = jax.lax.scan(body, state, blocks[nb_k:])
-    return state, jnp.concatenate([outs, rest], axis=0)
-
-
 def pconv_stream(cfg: PconvConfig, state: PconvState, blocks: Float,
                  unroll: int = 8) -> Tuple[PconvState, Float]:
     """Run many LTI blocks through a lax.scan. blocks: (nblocks, pts).
 
-    When the grid-streamed kernel is selected (cfg._use_stream_kernel —
-    explicit pallas="stream" or a measured auto win), the whole scan runs
-    as ONE pallas launch instead. Otherwise: unroll amortizes this
-    backend's ~15 us loop-iteration overhead over several blocks."""
-    from .pallas.streamstep import _STEP_GROUP
-    if (jnp.ndim(blocks) == 2 and jnp.shape(blocks)[0] >= _STEP_GROUP
-            and cfg._use_stream_kernel()):
-        return _pconv_stream_kernel(cfg, state, blocks)
-    if (jnp.ndim(blocks) == 2 and jnp.shape(blocks)[0] >= _STEP_GROUP
-            and cfg._use_decomposed_stream()):
-        # batched-transform engine (within f32 reduction-order tolerance
-        # of the scan, not bit-equal — see ops/decomposed.py)
-        from .decomposed import stream_decomposed
-        return stream_decomposed(cfg, state, blocks)
-
+    ``unroll`` places several blocks in one loop iteration, amortizing
+    the per-iteration loop overhead while per-block work is small."""
     def body(st, blk):
         return pconv_step(cfg, st, blk)
     return jax.lax.scan(body, state, blocks, unroll=unroll)
 
 
-def _pconv_stream_tv_kernel(cfg: PconvConfig, state: PconvState,
-                            blocks_x: Float, blocks_h: Float
-                            ) -> Tuple[PconvState, Float]:
-    """Whole-scan TV grid kernel (see _pconv_stream_kernel): x ring in
-    window layout, h ring passed directly (it is indexed by MAC position,
-    so it needs no translation), wp2 threaded as a scalar."""
-    import jax as _jax
-
-    from .pallas.splitstep import stream_steps_fused_split_tv
-    from .pallas.streamstep import (_STEP_GROUP, max_scan_blocks,
-                                    stream_steps_fused_tv)
-
-    is_split = cfg._stream_kernel_impl(tv=True) == "split"
-    fused_tv = (stream_steps_fused_split_tv if is_split
-                else stream_steps_fused_tv)
-
-    nb = blocks_x.shape[0]
-    nb_k = nb - nb % _STEP_GROUP
-    np_, b = cfg.nparts, cfg.bins
-    b0 = 2.0 if cfg.bin0_mode == "exact" else 1.0
-    z = jnp.asarray(0, state.wp.dtype)
-    w0r = jax.lax.dynamic_slice(state.spec_x_re, (state.wp, z), (np_, b))
-    w0i = jax.lax.dynamic_slice(state.spec_x_im, (state.wp, z), (np_, b))
-    # rows 2t / 2t+1 = block t's input / coefficient frames
-    blocks2 = jnp.stack(
-        [jnp.asarray(blocks_x[:nb_k], jnp.float32),
-         jnp.asarray(blocks_h[:nb_k], jnp.float32)],
-        axis=1).reshape(2 * nb_k, cfg.pts)
-    # segment long scans (see _pconv_stream_kernel); the h ring state and
-    # the decrementing wp2 thread through segments too
-    seg = max_scan_blocks(np_, b, tv=True, split=is_split)
-    interp = _jax.default_backend() == "cpu"
-    w, h = (w0r, w0i), (state.spec_h_re, state.spec_h_im)
-    tail = state.tail
-    outs_parts = []
-    for s0 in range(0, nb_k, seg):
-        s1 = min(nb_k, s0 + seg)
-        outs_s, w, h, tail = fused_tv(
-            blocks2[2 * s0:2 * s1], w, h, (state.wp2 - s0) % np_, b0,
-            tail, cfg.pts, interpret=interp)
-        outs_parts.append(outs_s)
-    (wfr, wfi), (hfr, hfi), tailf = w, h, tail
-    outs = (outs_parts[0] if len(outs_parts) == 1
-            else jnp.concatenate(outs_parts, axis=0))
-    wp_out = (state.wp + nb_k) % np_
-    ring_r = jnp.roll(wfr, wp_out, axis=0)
-    ring_i = jnp.roll(wfi, wp_out, axis=0)
-    state = state._replace(
-        spec_x_re=jnp.concatenate([ring_r, ring_r], axis=0),
-        spec_x_im=jnp.concatenate([ring_i, ring_i], axis=0),
-        spec_h_re=hfr, spec_h_im=hfi,
-        tail=tailf, wp=wp_out, wp2=(state.wp2 - nb_k) % np_)
-    if nb_k == nb:
-        return state, outs
-
-    def body(st, blks):
-        return pconv_step_tv(cfg, st, blks[0], blks[1])
-    rest_in = jnp.stack([blocks_x[nb_k:], blocks_h[nb_k:]], axis=1)
-    state, rest = jax.lax.scan(body, state, rest_in)
-    return state, jnp.concatenate([outs, rest], axis=0)
-
-
 def pconv_stream_tv(cfg: PconvConfig, state: PconvState, blocks_x: Float,
                     blocks_h: Float, unroll: int = 8) -> Tuple[PconvState, Float]:
-    """Run many TV blocks through a lax.scan (or, when the grid-streamed
-    kernel is selected, as one launch — see pconv_stream)."""
-    from .pallas.streamstep import _STEP_GROUP
-    if (jnp.ndim(blocks_x) == 2 and jnp.shape(blocks_x)[0] >= _STEP_GROUP
-            and cfg._use_stream_kernel(tv=True)):
-        return _pconv_stream_tv_kernel(cfg, state, blocks_x, blocks_h)
-    if (jnp.ndim(blocks_x) == 2 and jnp.shape(blocks_x)[0] >= _STEP_GROUP
-            and cfg._use_decomposed_stream(tv=True)):
-        # batched-transform engine (within f32 reduction-order tolerance
-        # of the scan, not bit-equal — see ops/decomposed.py)
-        from .decomposed import stream_decomposed
-        return stream_decomposed(cfg, state, blocks_x, blocks_h)
-
+    """Run many TV blocks through a lax.scan (see pconv_stream)."""
     def body(st, blks):
         return pconv_step_tv(cfg, st, blks[0], blks[1])
     stacked = jnp.stack([blocks_x, blocks_h], axis=1)  # (nblocks, 2, pts)
     return jax.lax.scan(body, state, stacked, unroll=unroll)
 
 
+def _batched_scan(step, cfg: PconvConfig, state: PconvState, blocks,
+                  unroll: int) -> Tuple[PconvState, Float]:
+    """Scan ``step`` over (nblocks, B, ...) block stacks, vmapped over the
+    channel axis of every state field.
+
+    Ring pointers may be shared scalars (models.convolver.batched_state
+    layout) or per-channel vectors; the latter map through vmap."""
+    # scan unroll amortizes the loop overhead only while per-block work is
+    # tiny; at wide batches the unrolled program grows instead
+    if jax.tree.leaves(blocks)[0].shape[1] >= 16:
+        unroll = 1
+    wp_ax = 0 if jnp.ndim(state.wp) else None
+    wp2_ax = 0 if jnp.ndim(state.wp2) else None
+
+    def body(st, blks):
+        def one(xr, xi, hr, hi, tl, wp, wp2, *blk):
+            sub = st._replace(spec_x_re=xr, spec_x_im=xi, spec_h_re=hr,
+                              spec_h_im=hi, tail=tl, wp=wp, wp2=wp2)
+            out_st, out = step(cfg, sub, *blk)
+            return (out_st.spec_x_re, out_st.spec_x_im, out_st.spec_h_re,
+                    out_st.spec_h_im, out_st.tail, out_st.wp, out_st.wp2,
+                    out)
+        nblk = len(blks)
+        xr, xi, hr, hi, tl, wp, wp2, out = jax.vmap(
+            one, in_axes=(0, 0, 0, 0, 0, wp_ax, wp2_ax) + (0,) * nblk)(
+            st.spec_x_re, st.spec_x_im, st.spec_h_re, st.spec_h_im,
+            st.tail, st.wp, st.wp2, *blks)
+        return st._replace(spec_x_re=xr, spec_x_im=xi, spec_h_re=hr,
+                           spec_h_im=hi, tail=tl,
+                           wp=wp if wp_ax == 0 else wp[0],
+                           wp2=wp2 if wp2_ax == 0 else wp2[0]), out
+    return jax.lax.scan(body, state, blocks, unroll=unroll)
+
+
 def pconv_stream_batched(cfg: PconvConfig, state: PconvState, blocks: Float,
                          unroll: int = 8) -> Tuple[PconvState, Float]:
     """Batched (multi-channel) LTI streaming: blocks (nblocks, B, pts),
-    state fields with a leading channel axis and SHARED scalar ring
-    pointers (models.convolver.batched_state layout).
-
-    Routes through the batched grid-streamed kernel when selected —
-    channels stack along the kernel's sublane axis, in VMEM-budget-sized
-    groups — otherwise falls back to the vmapped per-block scan."""
-    from .pallas.streamstep import (_STEP_GROUP, fits_vmem_streamstep_batched,
-                                    stream_steps_fused_batched)
-
-    from .pallas import _tuned
-
-    nb, nch = blocks.shape[0], blocks.shape[1]
-    # the batched kernel is a CLASSIC (dense-table) design — a config
-    # whose impl resolves to "split" (bins=2048) has no batched kernel
-    # and must take the vmapped scan. Above the measured channel-count
-    # crossover (tools/serving_scaling.py interleaved A/B) the vmapped
-    # scan wins — XLA's own batching keeps the MXU busy while the kernel
-    # pays per-VMEM-group launches — so auto only routes kernel-ward
-    # below it.
-    cross = getattr(_tuned, "BATCHED_KERNEL_MAX_CH", {}).get("lti")
-    if (jnp.ndim(blocks) != 3 or nb < _STEP_GROUP
-            or cfg._stream_kernel_impl() != "classic"
-            or not fits_vmem_streamstep_batched(cfg.nparts, cfg.bins, 1)
-            or (cfg.pallas == "auto" and cross is not None and nch > cross)
-            or jnp.ndim(state.wp) != 0):
-        # vmapped per-block scan; the per-launch kernels are
-        # single-stream designs (Mosaic rejects vmapped ANY blocks)
-        import dataclasses as _dc
-        scfg = (_dc.replace(cfg, pallas="off")
-                if cfg.pallas != "off" else cfg)
-
-        # scan unroll amortizes the ~15us/iter backend loop overhead,
-        # which only pays while per-block work is tiny; at wide batches
-        # the unrolled program bloat hurts scheduling (measured at 64ch:
-        # 1.07ms/block unrolled vs ~0.25ms unroll-free —
-        # tools/serving_scaling.py)
-        if nch >= 16:
-            unroll = 1
-        # ring pointers may be shared scalars (batched_state layout) or
-        # per-channel vectors — map the latter through vmap instead of
-        # letting the closed-over vector crash pconv_step's ring write
-        wp_ax = 0 if jnp.ndim(state.wp) else None
-        wp2_ax = 0 if jnp.ndim(state.wp2) else None
-
-        def body(st, blks):
-            def one(xr, xi, hr, hi, tl, wp, wp2, blk):
-                sub = st._replace(spec_x_re=xr, spec_x_im=xi, spec_h_re=hr,
-                                  spec_h_im=hi, tail=tl, wp=wp, wp2=wp2)
-                out_st, out = pconv_step(scfg, sub, blk)
-                return (out_st.spec_x_re, out_st.spec_x_im, out_st.spec_h_re,
-                        out_st.spec_h_im, out_st.tail, out_st.wp, out_st.wp2,
-                        out)
-            xr, xi, hr, hi, tl, wp, wp2, out = jax.vmap(
-                one, in_axes=(0, 0, 0, 0, 0, wp_ax, wp2_ax, 0))(
-                st.spec_x_re, st.spec_x_im, st.spec_h_re, st.spec_h_im,
-                st.tail, st.wp, st.wp2, blks)
-            return st._replace(spec_x_re=xr, spec_x_im=xi, spec_h_re=hr,
-                               spec_h_im=hi, tail=tl,
-                               wp=wp if wp_ax == 0 else wp[0],
-                               wp2=wp2 if wp2_ax == 0 else wp2[0]), out
-        return jax.lax.scan(body, state, blocks, unroll=unroll)
-
-    # largest channel-group size the VMEM budget takes
-    cmax = nch
-    while cmax > 1 and not fits_vmem_streamstep_batched(
-            cfg.nparts, cfg.bins, cmax):
-        cmax = (cmax + 1) // 2
-
-    nb_k = nb - nb % _STEP_GROUP
-    np_, b = cfg.nparts, cfg.bins
-    b0 = 2.0 if cfg.bin0_mode == "exact" else 1.0
-    z = jnp.asarray(0, state.wp.dtype)
-    wp_out = (state.wp + nb_k) % np_
-    outs_parts, ring_r_parts, ring_i_parts, tail_parts = [], [], [], []
-    from .pallas.streamstep import max_scan_blocks
-    for c0 in range(0, nch, cmax):
-        c1 = min(nch, c0 + cmax)
-        C = c1 - c0
-        w0r = jax.lax.dynamic_slice(
-            state.spec_x_re[c0:c1], (0, state.wp, z), (C, np_, b)
-        ).reshape(C * np_, b)
-        w0i = jax.lax.dynamic_slice(
-            state.spec_x_im[c0:c1], (0, state.wp, z), (C, np_, b)
-        ).reshape(C * np_, b)
-        h = (state.spec_h_re[c0:c1].reshape(C * np_, b),
-             state.spec_h_im[c0:c1].reshape(C * np_, b))
-        # segment long scans within the per-launch scoped-VMEM output
-        # budget (streamstep.max_scan_blocks) — the r3 bench crash was
-        # this group at 464 blocks where its 8-block probe passed
-        seg = max_scan_blocks(np_, b, batch=C)
-        interp = jax.default_backend() == "cpu"
-        w, tails = (w0r, w0i), state.tail[c0:c1]
-        seg_outs = []
-        for s0 in range(0, nb_k, seg):
-            s1 = min(nb_k, s0 + seg)
-            rows = jnp.asarray(blocks[s0:s1, c0:c1], jnp.float32
-                               ).reshape((s1 - s0) * C, cfg.pts)
-            outs, w, tails = stream_steps_fused_batched(
-                rows, w, h, b0, tails, cfg.pts, C, interpret=interp)
-            seg_outs.append(outs.reshape(s1 - s0, C, cfg.pts))
-        wfr, wfi = w
-        outs_parts.append(seg_outs[0] if len(seg_outs) == 1
-                          else jnp.concatenate(seg_outs, axis=0))
-        ring_r_parts.append(
-            jnp.roll(wfr.reshape(C, np_, b), wp_out, axis=1))
-        ring_i_parts.append(
-            jnp.roll(wfi.reshape(C, np_, b), wp_out, axis=1))
-        tail_parts.append(tails)
-    ring_r = jnp.concatenate(ring_r_parts, axis=0)
-    ring_i = jnp.concatenate(ring_i_parts, axis=0)
-    state = state._replace(
-        spec_x_re=jnp.concatenate([ring_r, ring_r], axis=1),
-        spec_x_im=jnp.concatenate([ring_i, ring_i], axis=1),
-        tail=jnp.concatenate(tail_parts, axis=0), wp=wp_out)
-    outs = jnp.concatenate(outs_parts, axis=1)
-    if nb_k == nb:
-        return state, outs
-    state, rest = pconv_stream_batched(cfg, state, blocks[nb_k:])
-    return state, jnp.concatenate([outs, rest], axis=0)
+    state fields with a leading channel axis (models.convolver.
+    batched_state layout) — the vmapped per-block scan."""
+    return _batched_scan(pconv_step, cfg, state,
+                         (jnp.asarray(blocks, cfg._jdtype),), unroll)
 
 
 def pconv_stream_batched_tv(cfg: PconvConfig, state: PconvState,
                             blocks_x: Float, blocks_h: Float,
                             unroll: int = 8) -> Tuple[PconvState, Float]:
     """Batched (multi-channel) TIME-VARYING streaming: blocks_x/blocks_h
-    (nblocks, B, pts), state fields with a leading channel axis and SHARED
-    scalar ring pointers (models.convolver.batched_state layout).
-
-    Routes through the batched TV grid-streamed kernel when selected —
-    per-channel input AND coefficient rings VMEM-resident for the whole
-    scan, in VMEM-budget-sized channel groups — otherwise falls back to
-    the vmapped per-block scan. Per-block semantics identical to
-    pconv_step_tv (the serving analog of cl_conv.cpp:460-548's dual
-    command queues, across many channels in one launch)."""
-    from .pallas.streamstep import (_STEP_GROUP,
-                                    fits_vmem_streamstep_batched_tv,
-                                    stream_steps_fused_batched_tv)
-
-    from .pallas import _tuned
-
-    nb, nch = blocks_x.shape[0], blocks_x.shape[1]
-    # like the LTI batched kernel this is a CLASSIC (dense-table) design;
-    # split-impl configs (bins=2048) take the vmapped scan. Auto mode
-    # also respects the measured channel-count crossover (see the LTI
-    # wrapper above).
-    cross = getattr(_tuned, "BATCHED_KERNEL_MAX_CH", {}).get("tv")
-    if (jnp.ndim(blocks_x) != 3 or nb < _STEP_GROUP
-            or cfg._stream_kernel_impl(tv=True) != "classic"
-            or not fits_vmem_streamstep_batched_tv(cfg.nparts, cfg.bins, 1)
-            or (cfg.pallas == "auto" and cross is not None and nch > cross)
-            or jnp.ndim(state.wp) != 0):
-        import dataclasses as _dc
-        scfg = (_dc.replace(cfg, pallas="off")
-                if cfg.pallas != "off" else cfg)
-
-        # wide batches: unroll-free scan (see the LTI batched fallback)
-        if nch >= 16:
-            unroll = 1
-        # shared-scalar or per-channel ring pointers (see the LTI batched
-        # fallback above)
-        wp_ax = 0 if jnp.ndim(state.wp) else None
-        wp2_ax = 0 if jnp.ndim(state.wp2) else None
-
-        def body(st, blks):
-            def one(xr, xi, hr, hi, tl, wp, wp2, bx, bh):
-                sub = st._replace(spec_x_re=xr, spec_x_im=xi, spec_h_re=hr,
-                                  spec_h_im=hi, tail=tl, wp=wp, wp2=wp2)
-                out_st, out = pconv_step_tv(scfg, sub, bx, bh)
-                return (out_st.spec_x_re, out_st.spec_x_im, out_st.spec_h_re,
-                        out_st.spec_h_im, out_st.tail, out_st.wp, out_st.wp2,
-                        out)
-            xr, xi, hr, hi, tl, wp, wp2, out = jax.vmap(
-                one, in_axes=(0, 0, 0, 0, 0, wp_ax, wp2_ax, 0, 0))(
-                st.spec_x_re, st.spec_x_im, st.spec_h_re, st.spec_h_im,
-                st.tail, st.wp, st.wp2, blks[0], blks[1])
-            return st._replace(spec_x_re=xr, spec_x_im=xi, spec_h_re=hr,
-                               spec_h_im=hi, tail=tl,
-                               wp=wp if wp_ax == 0 else wp[0],
-                               wp2=wp2 if wp2_ax == 0 else wp2[0]), out
-        stacked = jnp.stack([jnp.asarray(blocks_x, jnp.float32),
-                             jnp.asarray(blocks_h, jnp.float32)],
-                            axis=1)                  # (nb, 2, B, pts)
-        return jax.lax.scan(body, state, stacked, unroll=unroll)
-
-    # largest channel-group size the (12-plane) VMEM budget takes
-    cmax = nch
-    while cmax > 1 and not fits_vmem_streamstep_batched_tv(
-            cfg.nparts, cfg.bins, cmax):
-        cmax = (cmax + 1) // 2
-
-    nb_k = nb - nb % _STEP_GROUP
-    np_, b = cfg.nparts, cfg.bins
-    b0 = 2.0 if cfg.bin0_mode == "exact" else 1.0
-    z = jnp.asarray(0, state.wp.dtype)
-    wp_out = (state.wp + nb_k) % np_
-    outs_parts, tail_parts = [], []
-    ring_r_parts, ring_i_parts, h_r_parts, h_i_parts = [], [], [], []
-    for c0 in range(0, nch, cmax):
-        c1 = min(nch, c0 + cmax)
-        C = c1 - c0
-        w0r = jax.lax.dynamic_slice(
-            state.spec_x_re[c0:c1], (0, state.wp, z), (C, np_, b)
-        ).reshape(C * np_, b)
-        w0i = jax.lax.dynamic_slice(
-            state.spec_x_im[c0:c1], (0, state.wp, z), (C, np_, b)
-        ).reshape(C * np_, b)
-        from .pallas.streamstep import max_scan_blocks
-        # segment long scans (see the LTI batched wrapper above); h and
-        # the decrementing wp2 thread through segments per group
-        seg = max_scan_blocks(np_, b, batch=C, tv=True)
-        interp = jax.default_backend() == "cpu"
-        w = (w0r, w0i)
-        h = (state.spec_h_re[c0:c1].reshape(C * np_, b),
-             state.spec_h_im[c0:c1].reshape(C * np_, b))
-        tails = state.tail[c0:c1]
-        seg_outs = []
-        for s0 in range(0, nb_k, seg):
-            s1 = min(nb_k, s0 + seg)
-            # row (2t)*C + c = block t's input frame of channel c,
-            # (2t+1)*C + c its coefficient frame
-            rows2 = jnp.stack(
-                [jnp.asarray(blocks_x[s0:s1, c0:c1], jnp.float32),
-                 jnp.asarray(blocks_h[s0:s1, c0:c1], jnp.float32)],
-                axis=1).reshape(2 * (s1 - s0) * C, cfg.pts)
-            outs, w, h, tails = stream_steps_fused_batched_tv(
-                rows2, w, h, (state.wp2 - s0) % np_, b0, tails,
-                cfg.pts, C, interpret=interp)
-            seg_outs.append(outs.reshape(s1 - s0, C, cfg.pts))
-        (wfr, wfi), (hfr, hfi) = w, h
-        outs_parts.append(seg_outs[0] if len(seg_outs) == 1
-                          else jnp.concatenate(seg_outs, axis=0))
-        ring_r_parts.append(
-            jnp.roll(wfr.reshape(C, np_, b), wp_out, axis=1))
-        ring_i_parts.append(
-            jnp.roll(wfi.reshape(C, np_, b), wp_out, axis=1))
-        # h rows are indexed by MAC position — no translation
-        h_r_parts.append(hfr.reshape(C, np_, b))
-        h_i_parts.append(hfi.reshape(C, np_, b))
-        tail_parts.append(tails)
-    ring_r = jnp.concatenate(ring_r_parts, axis=0)
-    ring_i = jnp.concatenate(ring_i_parts, axis=0)
-    state = state._replace(
-        spec_x_re=jnp.concatenate([ring_r, ring_r], axis=1),
-        spec_x_im=jnp.concatenate([ring_i, ring_i], axis=1),
-        spec_h_re=jnp.concatenate(h_r_parts, axis=0),
-        spec_h_im=jnp.concatenate(h_i_parts, axis=0),
-        tail=jnp.concatenate(tail_parts, axis=0), wp=wp_out,
-        wp2=(state.wp2 - nb_k) % np_)
-    outs = jnp.concatenate(outs_parts, axis=1)
-    if nb_k == nb:
-        return state, outs
-    state, rest = pconv_stream_batched_tv(
-        cfg, state, blocks_x[nb_k:], blocks_h[nb_k:])
-    return state, jnp.concatenate([outs, rest], axis=0)
-
-
-def _use_chunkmac(cfg: PconvConfig) -> bool:
-    from .pallas.chunkmac import fits_vmem_chunkmac
-    return (cfg.pallas != "off" and cfg._kernel_eligible()
-            and fits_vmem_chunkmac(cfg.nparts, cfg.bins))
-
-
-def _offline_impl(cfg: PconvConfig, batch: int):
-    """Which kernel carries the scan-free offline MAC: "chunkmac"
-    (resident shifted coefficient stacks — the measured winner at
-    nparts <= ~512 and batch <= its channel crossover), "macflow"
-    (HBM-streamed windows, ops/pallas/macflow.py — no nparts ceiling,
-    no channel crossover: its window DMAs are per-(channel, group) and
-    pipelined), or None (scan fallback)."""
-    from .pallas.chunkmac import CHUNKMAC_MAX_BATCH
-    from .pallas.macflow import fits_macflow
-    if _use_chunkmac(cfg) and batch <= CHUNKMAC_MAX_BATCH:
-        return "chunkmac"
-    if (cfg.pallas != "off" and cfg._kernel_eligible()
-            and fits_macflow(cfg.nparts, cfg.bins)):
-        return "macflow"
-    return None
+    (nblocks, B, pts), state fields with a leading channel axis. Per-block
+    semantics identical to pconv_step_tv (the serving analog of
+    cl_conv.cpp:460-548's dual command queues, across many channels)."""
+    return _batched_scan(pconv_step_tv, cfg, state,
+                         (jnp.asarray(blocks_x, cfg._jdtype),
+                          jnp.asarray(blocks_h, cfg._jdtype)), unroll)
 
 
 def _offline_batched(cfg: PconvConfig, state: PconvState, blocks: Float
@@ -1172,12 +663,14 @@ def _offline_batched(cfg: PconvConfig, state: PconvState, blocks: Float
     The frequency-delay-line MAC is a pure sliding-window correlation
     over the frame-spectrum timeline (the ring holds exactly the last
     nparts spectra), so the whole render is: ONE batched forward rFFT,
-    the chunk_mac Pallas kernel over the timeline, ONE batched inverse,
-    and a vectorized overlap-add — no sequential scan anywhere. Output
-    matches per-block streaming within f32 reduction-order tolerance.
-    State fields carry a leading channel axis (B); ring pointers are
-    shared across channels (models.convolver.batched_state convention).
+    the chunked gather-MAC over the timeline (ops/decomposed.py), ONE
+    batched inverse, and a vectorized overlap-add — no sequential scan.
+    Output matches per-block streaming within f32 reduction-order
+    tolerance. State fields carry a leading channel axis (B); ring
+    pointers are shared across channels (models.convolver.batched_state
+    convention).
     """
+    from .decomposed import _lti_mac_xla
     from .fft import exact_precision
 
     f32 = cfg._jdtype
@@ -1198,37 +691,11 @@ def _offline_batched(cfg: PconvConfig, state: PconvState, blocks: Float
         (B, np_ - 1, cfg.bins)).astype(f32)
 
     b0 = 2.0 if cfg.bin0_mode == "exact" else 1.0
-    interp = jax.default_backend() == "cpu"
-    h = (state.spec_h_re.astype(f32), state.spec_h_im.astype(f32))
-    impl = _offline_impl(cfg, B)
-    if impl == "macflow":
-        from .pallas.macflow import macflow_lti_batched
-        tl_r = jnp.concatenate([old_r, fr], axis=1)   # (B, np-1+nb, bins)
-        tl_i = jnp.concatenate([old_i, fi], axis=1)
-        acc_r, acc_i = macflow_lti_batched(
-            (tl_r, tl_i), h, nb, b0, interpret=interp)
-    elif impl == "chunkmac":
-        from .pallas.chunkmac import chunk_mac, pick_group_blocks
-        gb = pick_group_blocks(np_, cfg.bins)
-        groups = -(-nb // gb)
-        rows = np_ + gb * groups
-        pad = rows - (np_ - 1) - nb
-        tl_r = jnp.concatenate(
-            [old_r, fr, jnp.zeros((B, pad, cfg.bins), f32)], axis=1)
-        tl_i = jnp.concatenate(
-            [old_i, fi, jnp.zeros((B, pad, cfg.bins), f32)], axis=1)
-        acc_r, acc_i = chunk_mac((tl_r, tl_i), h, b0, interpret=interp)
-    else:
-        # pure-XLA sliding-window MAC (pallas="off" / CPU / ineligible
-        # shapes) — keeps the offline/chunked engines total
-        from .decomposed import _lti_mac_xla
-        tl_r = jnp.concatenate([old_r, fr], axis=1)
-        tl_i = jnp.concatenate([old_i, fi], axis=1)
-        acc_r, acc_i = jax.vmap(
-            lambda xr, xi, hr, hi: _lti_mac_xla(
-                cfg, (xr, xi), (hr, hi), nb, b0))(
-            tl_r, tl_i, h[0], h[1])
-    acc_r, acc_i = acc_r[:, :nb], acc_i[:, :nb]       # (B, nb, bins)
+    tl_r = jnp.concatenate([old_r, fr], axis=1)       # (B, np-1+nb, bins)
+    tl_i = jnp.concatenate([old_i, fi], axis=1)
+    acc_r, acc_i = jax.vmap(
+        lambda xr, xi, hr, hi: _lti_mac_xla(cfg, (xr, xi), (hr, hi), nb, b0))(
+        tl_r, tl_i, state.spec_h_re.astype(f32), state.spec_h_im.astype(f32))
 
     with exact_precision():
         y = irfft_split((acc_r, acc_i), cfg.impl)     # (B, nb, 2*pts)
@@ -1264,13 +731,10 @@ def pconv_offline(cfg: PconvConfig, state: PconvState, blocks: Float
 
     blocks: (nblocks, pts) -> (nblocks, pts), any nblocks >= 1. Output
     equals sequential pconv_step streaming within f32 tolerance (the
-    kernel's reduction order differs); use pconv_stream / pconv_chunk
-    when bit-equality with per-block streaming is required. Falls back
-    to the scan engine off-TPU-eligible configs.
+    gather-MAC's reduction order differs); use pconv_stream / pconv_chunk
+    when bit-equality with per-block streaming is required.
     """
     blocks = jnp.asarray(blocks, cfg._jdtype)
-    if _offline_impl(cfg, 1) is None:
-        return pconv_stream(cfg, state, blocks)
     bstate = state._replace(
         spec_x_re=state.spec_x_re[None], spec_x_im=state.spec_x_im[None],
         spec_h_re=state.spec_h_re[None], spec_h_im=state.spec_h_im[None],
@@ -1278,7 +742,6 @@ def pconv_offline(cfg: PconvConfig, state: PconvState, blocks: Float
     bstate, outs = _offline_batched(cfg, bstate, blocks[:, None])
     return state._replace(
         spec_x_re=bstate.spec_x_re[0], spec_x_im=bstate.spec_x_im[0],
-        spec_h_re=bstate.spec_h_re[0], spec_h_im=bstate.spec_h_im[0],
         tail=bstate.tail[0], wp=bstate.wp), outs[:, 0]
 
 
@@ -1287,45 +750,21 @@ def pconv_stream_batched_chunked(cfg: PconvConfig, state: PconvState,
                                  ) -> Tuple[PconvState, Float]:
     """Latency-relaxed batched streaming: (nblocks, B, pts) processed in
     K-block chunks (K blocks of latency) through the scan-free offline
-    engine — one batched forward, one kernel MAC, one batched inverse
-    per chunk, so the per-channel ring window is read once per
-    min(K, 8)-output group instead of once per block.
+    engine — one batched forward, one gather-MAC, one batched inverse
+    per chunk, so the per-channel ring window is read once per chunk
+    instead of once per block.
 
-    This replaces the r3 chunked-serving path (a vmapped pconv_chunk,
-    whose (K, nparts, bins)-materializing gathers made the
-    "latency-relaxed" point 5.6x SLOWER than plain streaming — the
-    bench_details.json inversion VERDICT r3 #4 flagged). Outputs match
-    per-block streaming within f32 reduction-order tolerance; use the
-    per-block paths when bit-equality matters. State chains exactly
-    (each chunk's final ring state is the next chunk's initial state).
-
-    Auto dispatch: while the whole ring carry (batch x 4 planes of
-    (nparts, bins) f32) fits VMEM, XLA keeps the per-block scan's carry
-    resident and the scan beats the chunk engine's O(nparts)-per-chunk
-    ring rebuilds (measured at nparts=256, bins=512: batch=16 / 33.5 MB
-    carry -> scan 24.4 vs chunk 140.4 us; batch=64 / 134 MB -> scan
-    151.1 vs chunk 91.9, bench_results/serving_scaling.json). auto
-    delegates to pconv_stream_batched below ~64 MB of carry; "macflow"
-    or "off" force the chunk engine.
+    Outputs match per-block streaming within f32 reduction-order
+    tolerance; use the per-block paths when bit-equality matters. State
+    chains exactly (each chunk's final ring state is the next chunk's
+    initial state). Per-channel ring-pointer vectors (the chunk engine
+    assumes shared scalars) take the per-block engine.
     """
     nb, B, pts = blocks.shape
     if nb % K:
         raise ValueError(f"nblocks {nb} must be a multiple of K={K}")
-    # per-channel ring-pointer vectors: the chunk engine assumes the
-    # shared-scalar state layout; the per-block engine handles both.
-    # The carry-envelope delegation applies to every pallas mode except
-    # the explicit "macflow"/"off" chunk-engine opt-ins (docstring
-    # contract): a user pinning e.g. pallas="stream" must not silently
-    # get the measured-negative chunk path at resident shapes.
-    if (jnp.ndim(state.wp) != 0
-            or (cfg.pallas not in ("macflow", "off")
-                and B * 4 * cfg.nparts * cfg.bins * 4
-                <= 64 * 1024 * 1024)):
-        # measured scan-unroll guidance (serving tool): narrow batches
-        # amortize the ~15us/iter loop overhead, wide ones suffer the
-        # unrolled program bloat
-        return pconv_stream_batched(cfg, state, blocks,
-                                    unroll=1 if B >= 16 else 8)
+    if jnp.ndim(state.wp) != 0:
+        return pconv_stream_batched(cfg, state, blocks)
     chunks = jnp.asarray(blocks, cfg._jdtype).reshape(nb // K, K, B, pts)
 
     def body(st, ch):
@@ -1342,45 +781,21 @@ def pconv_stream_batched_tv_chunked(cfg: PconvConfig, state: PconvState,
     """Latency-relaxed batched TIME-VARYING streaming: (nblocks, B, pts)
     operand pairs processed in K-block chunks through the batched TV
     decomposed engine (ops.decomposed.stream_batched_tv_decomposed) —
-    one batched forward over both operands, one TV pairing MAC
-    (macflow_tv_batched where eligible), one batched inverse per chunk.
+    one batched forward over both operands, one TV pairing gather-MAC,
+    one batched inverse per chunk.
 
-    The TV analog of pconv_stream_batched_chunked: K blocks of latency
-    buy transform batching and a kernel MAC whose coefficient-timeline
-    window is read once per output group instead of once per block.
-    Outputs match per-block streaming within f32 reduction-order
-    tolerance; state chains exactly across chunks (wp/wp2 walks are the
-    scan's). Use pconv_stream_batched_tv when bit-equality with the
-    per-block scan matters.
-
-    Auto dispatch: the chunk engine rebuilds both (nparts-1)-row
-    timeline prefixes and all four ring planes every K blocks, an
-    O(nparts)-per-chunk cost that only pays where the per-block path is
-    itself transform/residency-bound. At resident-kernel shapes it is a
-    measured NEGATIVE (batch=64, nparts=256, bins=512: 601.9 vs the
-    scan's 141.3 us/block all-channels, bench_results/
-    serving_scaling.json) — so pallas="auto" takes the chunk engine
-    only where `_use_decomposed_stream(tv=True)` holds and otherwise
-    runs the per-block batched engine (which also has K-blocks-lower
-    latency, trivially satisfying the relaxation). Explicit
-    pallas="macflow" forces the chunk engine.
+    The TV analog of pconv_stream_batched_chunked: outputs match
+    per-block streaming within f32 reduction-order tolerance; state
+    chains exactly across chunks (wp/wp2 walks are the scan's).
+    Per-channel ring-pointer vectors take the per-block engine.
     """
     from .decomposed import stream_batched_tv_decomposed
 
     nb, B, pts = blocks_x.shape
     if nb % K:
         raise ValueError(f"nblocks {nb} must be a multiple of K={K}")
-    # per-channel ring-pointer vectors: the chunk engine assumes the
-    # shared-scalar state layout; the per-block engine handles both.
-    # As in the LTI wrapper: only the explicit "macflow" opt-in forces
-    # the chunk engine; every other pallas mode takes the measured
-    # delegation (the chunk path is a measured NEGATIVE at
-    # resident-kernel shapes).
-    if (jnp.ndim(state.wp) != 0 or jnp.ndim(state.wp2) != 0
-            or (cfg.pallas != "macflow"
-                and not cfg._use_decomposed_stream(tv=True))):
-        return pconv_stream_batched_tv(cfg, state, blocks_x, blocks_h,
-                                       unroll=1 if B >= 16 else 8)
+    if jnp.ndim(state.wp) != 0 or jnp.ndim(state.wp2) != 0:
+        return pconv_stream_batched_tv(cfg, state, blocks_x, blocks_h)
     cx = jnp.asarray(blocks_x, cfg._jdtype).reshape(nb // K, K, B, pts)
     ch = jnp.asarray(blocks_h, cfg._jdtype).reshape(nb // K, K, B, pts)
 
@@ -1396,7 +811,7 @@ def convolve_oneshot(signal: Float, ir: Float, impl: str = "auto") -> Float:
 
     The streaming engine exists for bounded latency; when latency doesn't
     matter (offline rendering, IR preprocessing) a single big rFFT pair is
-    the fast path — O(L log L) with all FLOPs in MXU matmul stages.
+    the fast path — O(L log L) in two transforms.
     Matches scipy.signal.fftconvolve to f32 tolerance.
 
     Spectral bookkeeping in the packed convention: bin 0 carries
@@ -1421,9 +836,6 @@ def convolve_oneshot(signal: Float, ir: Float, impl: str = "auto") -> Float:
     yi = xr * hi + xi * hr
     yr = yr.at[..., 0].set(2.0 * xr[..., 0] * hr[..., 0])
     yi = yi.at[..., 0].set(2.0 * xi[..., 0] * hi[..., 0])
-    # /m rides the transform's fused scale epilogue: at these sizes the
-    # inverse can land on the vmem pallas kernel, where an outside
-    # divide costs a full extra HBM pass
     y = irfft_split((yr, yi), impl, scale=1.0 / m)
     return y[..., :out_len]
 

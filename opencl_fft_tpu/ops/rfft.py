@@ -155,7 +155,6 @@ def rfft_split(r: Float, impl: str = "auto", unnormalized: bool = False) -> Cplx
             f"count) and >= 4, got {n}")
     z = deinterleave(r)
     # the 1/M normalization rides the transform's fused scale epilogue
-    # (free on all paths; avoids an extra HBM pass on the vmem kernel)
     cr, ci = fft_split(z, -1, impl,
                        scale=1.0 if unnormalized else 2.0 / n)
     return pack_forward((cr, ci))

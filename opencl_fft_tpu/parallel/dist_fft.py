@@ -4,8 +4,8 @@
 This module scales the *transform itself*: the classic six-step
 decomposition n = n1 * n2 with the transform data sharded over the mesh
 and the three unavoidable global transposes expressed as XLA
-``all_to_all`` collectives that ride ICI. This is the TPU answer for
-transforms too large (or too latency-critical) for a single core — a
+``all_to_all`` collectives (NCCL over NVLink on GPUs), for
+transforms too large (or too latency-critical) for a single device — a
 capability with no reference counterpart (the reference is strictly
 single-device, SURVEY §2 parallelism inventory).
 
@@ -15,8 +15,8 @@ Math (same decomposition as ops/fft._fft_mm, distributed):
     transpose -> DFT(n1) -> twiddle -> transpose -> DFT(n2) -> transpose
 
 Each transpose moves n/d elements per device (the minimum any distributed
-FFT must exchange); the local DFTs hit the MXU through the tuned matmul
-four-step core. Input and output are both natural order, contiguously
+FFT must exchange); the local DFTs run through ops.fft.fft_split.
+Input and output are both natural order, contiguously
 block-sharded over the mesh axis.
 """
 

@@ -6,10 +6,10 @@ a 2-D ``(dp, tp)`` mesh where
 
   dp — data parallel: independent FFT/convolution channels (batch axis)
   tp — tensor parallel: the partition (frequency-delay-line) axis of the
-       partitioned convolver, reduced with an ICI psum
+       partitioned convolver, reduced with a psum across devices
 
-Meshes are built over whatever devices exist (real TPU slice or the
-virtual CPU mesh used in tests/dry runs).
+Meshes are built over whatever devices exist (GPUs joined by NVLink, or
+the virtual CPU mesh used in tests/dry runs).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Sharded execution of the FFT and partitioned-convolution engines.
 
-TPU-native replacement for the reference's (absent) scale-out story
+Replacement for the reference's (absent) scale-out story
 (SURVEY §2: the only parallelism is intra-device work-items + two command
 queues). Two axes of scale:
 
@@ -12,7 +12,7 @@ queues). Two axes of scale:
     channels shard over ``dp``; the frequency-delay line (partition axis)
     shards over ``tp``. Design: the input spectral ring is REPLICATED
     across tp (it changes by one frame per block — cheap), the coefficient
-    ring and the partition-MAC are SHARDED, and one ``psum(bins)`` over ICI
+    ring and the partition-MAC are SHARDED, and one ``psum(bins)`` across devices
     completes the spectral accumulation. Per-block communication is
     O(pts) floats — independent of IR length, so arbitrarily long IRs
     scale across chips.
@@ -163,7 +163,7 @@ def make_sharded_pconv_step(cfg: _p.PconvConfig, mesh: Mesh, tv: bool = True):
         acc_r = acc_r.at[:, 0].set(b0 * jnp.sum(gxr[:, :, 0] * hr_[:, :, 0], axis=1))
         acc_i = acc_i.at[:, 0].set(b0 * jnp.sum(gxi[:, :, 0] * hi_[:, :, 0], axis=1))
 
-        # the only cross-chip communication: one psum of (b, bins) over ICI
+        # the only cross-device communication: one psum of (b, bins)
         acc_r = jax.lax.psum(acc_r, "tp")
         acc_i = jax.lax.psum(acc_i, "tp")
 
@@ -197,7 +197,7 @@ def make_sharded_pconv_xfade(cfg: _p.PconvConfig, mesh: Mesh):
 
     ``step(xf, block, ramp)`` runs one faded block: both paths' local
     partition-MACs are stacked so the fade rides ONE psum of a
-    (2, b, bins) plane — doubled ICI bytes, no extra collective latency.
+    (2, b, bins) plane — doubled collective bytes, no extra collective latency.
     When the host-side ramp schedule reaches 1, continue with the plain
     ``make_sharded_pconv_step`` step on ``xf``'s base keys (drop
     ``old_*``).

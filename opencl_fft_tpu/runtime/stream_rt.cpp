@@ -3,7 +3,7 @@
 // The reference's host runtime is C++: the Csound opcode layer shuttles
 // samples between ksmps-sized audio blocks and partition-sized engine
 // calls every perf cycle (csound/opcode.cpp:229-252, :313-344). This file
-// is the TPU-native equivalent of that hot host path:
+// is the equivalent of that hot host path:
 //
 //   * BlockAcc  — the partition accumulator with one-partition latency
 //                 (exact semantics of opcode.cpp:240-249), n_streams wide

@@ -2,7 +2,7 @@
 
 The reference maps OpenCL status codes to human-readable strings
 (``cl_fft.cpp:298-395`` and the duplicate table in ``cl_conv.h:25-122``) and
-lets callers poll ``get_error()``/``get_cl_err()``. A TPU-native framework
+lets callers poll ``get_error()``/``get_cl_err()``. This framework
 raises typed exceptions instead, but we keep:
 
   * ``Status`` — an integer status enum whose *names* cover the same failure

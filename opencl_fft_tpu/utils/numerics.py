@@ -4,8 +4,8 @@ Mirrors small host-side utilities of the reference:
   * ``np2`` — next power of two, reference ``csound/opcode.cpp:30-35``
     (note the reference returns at least 2 and rounds *up to or equal*).
   * bit-reversal permutation table, reference ``cl_fft.cpp:96-101``
-    (kept for parity tests; the TPU FFT itself is autosorting and never
-    materialises a bit-reversal pass).
+    (kept for parity tests; the FFT paths here are autosorting and never
+    materialise a bit-reversal pass).
 """
 
 from __future__ import annotations
@@ -57,8 +57,8 @@ def require_x64() -> None:
     The f64 paths (the analog of the reference's -DUSE_DOUBLE MYFLT width,
     macos-build.sh:5) need jax_enable_x64; without it jax silently demotes
     float64 arrays to float32, which would make a requested-f64 transform
-    quietly wrong rather than precise. CPU only — the TPU backend here has
-    no f64 kernels.
+    quietly wrong rather than precise. The CPU and GPU backends both run
+    f64.
     """
     import jax
 
@@ -66,4 +66,4 @@ def require_x64() -> None:
         raise ValueError(
             "float64 data requires 64-bit mode: enable it with "
             "jax.config.update('jax_enable_x64', True) or the "
-            "jax.enable_x64() context manager (CPU only)")
+            "jax.enable_x64() context manager")

@@ -3,7 +3,7 @@
 This is a literal re-statement (in plain numpy, from the SURVEY's math
 derivation) of what the OpenCL kernels compute — ring pointers, packing
 conventions, bin-0 componentwise products, /parts normalization and all —
-so the TPU engines can be checked against the reference's *behavior*
+so the JAX engines can be checked against the reference's *behavior*
 without OpenCL hardware. Citations refer to /root/reference files.
 """
 

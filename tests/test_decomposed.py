@@ -3,7 +3,7 @@
 The scan (pconv_step / pconv_step_tv chained) is the oracle: it is
 itself pinned bit-for-bit against the literal numpy model of the
 reference kernels (tests/reference_model.py). The decomposed path and
-the macflow kernels must reproduce it within f32 reduction-order
+its chunked gather-MACs must reproduce it within f32 reduction-order
 tolerance, across LTI/TV, chunked state chaining, nb < nparts, and
 mid-stream ring-pointer values.
 """
@@ -104,72 +104,63 @@ def test_decomposed_compat_bin0():
 
 
 # ---------------------------------------------------------------------------
-# macflow kernels (interpret mode on CPU) vs the XLA pairing fallback
+# chunked XLA gather-MACs (ops/decomposed._lti_mac_xla / _tv_mac_xla)
+# against the scan, at 128-sample partitions
 # ---------------------------------------------------------------------------
+
+def _primed(cfg, st, rng, c, tv):
+    """Stream c blocks first so the ring pointers sit mid-ring: wp = c,
+    wp2 = nparts-1-c (coefficient-ring phase c)."""
+    if c == 0:
+        return st
+    bx = jnp.asarray(rng.standard_normal((c, cfg.pts)), jnp.float32)
+    if tv:
+        bh = jnp.asarray(rng.standard_normal((c, cfg.pts)) * 0.2,
+                         jnp.float32)
+        return _scan_tv(cfg, st, bx, bh)[0]
+    return _scan_lti(cfg, st, bx)[0]
+
 
 @pytest.mark.parametrize("nparts,nb", [(16, 24), (32, 8), (64, 40),
                                        (16, 11)])
-def test_macflow_lti_kernel_matches_xla(nparts, nb):
-    from opencl_fft_tpu.ops.decomposed import _lti_mac_xla
-    from opencl_fft_tpu.ops.pallas.macflow import macflow_lti
-
+def test_lti_gather_mac_matches_scan(nparts, nb):
     cfg, st, rng = _mk(128, nparts, seed=5)
-    bins = cfg.bins
-    xtl_r = jnp.asarray(
-        rng.standard_normal((nparts - 1 + nb, bins)), jnp.float32)
-    xtl_i = jnp.asarray(
-        rng.standard_normal((nparts - 1 + nb, bins)), jnp.float32)
-    h = (st.spec_h_re, st.spec_h_im)
-    ar, ai = _lti_mac_xla(cfg, (xtl_r, xtl_i), h, nb, 2.0)
-    kr, ki = macflow_lti((xtl_r, xtl_i), h, nb, 2.0, interpret=True)
-    np.testing.assert_allclose(kr[:nb], ar, atol=2e-4, rtol=2e-5)
-    np.testing.assert_allclose(ki[:nb], ai, atol=2e-4, rtol=2e-5)
+    blocks = jnp.asarray(rng.standard_normal((nb, 128)), jnp.float32)
+    _, out_s = _scan_lti(cfg, st, blocks)
+    _, out_d = stream_decomposed(cfg, st, blocks)
+    np.testing.assert_allclose(out_d, out_s, atol=2e-5)
 
 
 @pytest.mark.parametrize("nparts,nb", [(16, 24), (32, 8), (64, 40),
                                        (16, 11), (16, 64), (32, 80),
                                        (64, 96)])
-def test_macflow_tv_kernel_matches_xla(nparts, nb):
-    from opencl_fft_tpu.ops.decomposed import _tv_mac_xla
-    from opencl_fft_tpu.ops.pallas.macflow import macflow_tv
-
-    cfg, _, rng = _mk(128, nparts, seed=6)
-    bins = cfg.bins
-    rows = nparts - 1 + nb
-    xtl = (jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32),
-           jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32))
-    htl = (jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32),
-           jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32))
-    ar, ai = _tv_mac_xla(cfg, xtl, htl, nb, 2.0, jnp.int32(nparts - 1))
-    kr, ki = macflow_tv(xtl, htl, nb, nparts, 2.0, interpret=True)
-    np.testing.assert_allclose(kr[:nb], ar, atol=2e-4, rtol=2e-5)
-    np.testing.assert_allclose(ki[:nb], ai, atol=2e-4, rtol=2e-5)
+def test_tv_gather_mac_matches_scan(nparts, nb):
+    cfg, st, rng = _mk(128, nparts, seed=6)
+    bx = jnp.asarray(rng.standard_normal((nb, 128)), jnp.float32)
+    bh = jnp.asarray(rng.standard_normal((nb, 128)) * 0.2, jnp.float32)
+    st_s, out_s = _scan_tv(cfg, st, bx, bh)
+    st_d, out_d = stream_decomposed(cfg, st, bx, bh)
+    np.testing.assert_allclose(out_d, out_s, atol=2e-5)
+    np.testing.assert_allclose(st_d.spec_h_re, st_s.spec_h_re, atol=2e-5)
 
 
 @pytest.mark.parametrize("c", [8, 16, 24])
-def test_macflow_tv_kernel_phase(c):
-    """General coefficient-ring phase (c ≡ 0 mod 8): kernel == gather."""
-    from opencl_fft_tpu.ops.decomposed import _tv_mac_xla
-    from opencl_fft_tpu.ops.pallas.macflow import macflow_tv
-
+def test_tv_gather_mac_phase(c):
+    """General coefficient-ring phase c (wp2 = nparts-1-c): gather == scan."""
     nparts, nb = 32, 24
-    cfg, _, rng = _mk(128, nparts, seed=7)
-    bins = cfg.bins
-    rows = nparts - 1 + nb
-    xtl = (jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32),
-           jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32))
-    htl = (jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32),
-           jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32))
-    wp2 = jnp.int32((nparts - 1 - c) % nparts)
-    ar, ai = _tv_mac_xla(cfg, xtl, htl, nb, 2.0, wp2)
-    kr, ki = macflow_tv(xtl, htl, nb, nparts, 2.0, c=c, interpret=True)
-    np.testing.assert_allclose(kr[:nb], ar, atol=2e-4, rtol=2e-5)
-    np.testing.assert_allclose(ki[:nb], ai, atol=2e-4, rtol=2e-5)
+    cfg, st, rng = _mk(128, nparts, seed=7)
+    st = _primed(cfg, st, rng, c, tv=True)
+    assert int(st.wp2) == (nparts - 1 - c) % nparts
+    bx = jnp.asarray(rng.standard_normal((nb, 128)), jnp.float32)
+    bh = jnp.asarray(rng.standard_normal((nb, 128)) * 0.2, jnp.float32)
+    _, out_s = _scan_tv(cfg, st, bx, bh)
+    _, out_d = stream_decomposed(cfg, st, bx, bh)
+    np.testing.assert_allclose(out_d, out_s, atol=2e-5)
 
 
 def test_decomposed_tv_kernel_route_chaining():
-    """Kernel-eligible shape, chained in multiples of 8 (phase stays
-    kernel-aligned) — exercises the lax.cond kernel branch end-to-end."""
+    """Chained in multiples of 8 from a fresh stream: two decomposed calls
+    == the scan, including the coefficient ring."""
     cfg, st, rng = _mk(128, 16, seed=8)
     bx = jnp.asarray(rng.standard_normal((40, 128)), jnp.float32)
     bh = jnp.asarray(rng.standard_normal((40, 128)) * 0.2, jnp.float32)
@@ -181,130 +172,146 @@ def test_decomposed_tv_kernel_route_chaining():
     np.testing.assert_allclose(st_b.spec_h_re, st_s.spec_h_re, atol=2e-5)
 
 
-def test_macflow_tile_multiple_tiles():
-    """Force ntiles > 2 paths (nparts > tile) by shrinking the budget."""
-    import opencl_fft_tpu.ops.pallas.macflow as MF
+def test_gather_mac_chunk_size_is_invisible(monkeypatch):
+    """The outputs-per-chunk bound (_XLA_MAC_CHUNK) only bounds memory: a
+    chunk size that does not divide nb gives the same result."""
+    import opencl_fft_tpu.ops.decomposed as DC
 
-    old = MF._TILE_BUDGET
-    MF._TILE_BUDGET = (14 * 8 + 70) * 128 * 4   # tile = 8 rows
-    try:
-        assert MF.pick_tile(64, 128) == 8
-        test_macflow_tv_kernel_matches_xla(64, 40)
-        test_macflow_lti_kernel_matches_xla(64, 40)
-        # long-scan group sizing at a small tile: gb must cap at T (the
-        # TV tile sweep covers group offsets only up to 2T — a gb=32
-        # group at T=8 silently dropped partitions, review r4), and the
-        # capped kernel must still match the oracle at nb >= 64
-        assert MF.pick_group(64, 8, 128) == 8
-        test_macflow_tv_kernel_matches_xla(64, 96)
-        # intermediate gb=16 (T=16): the halving cap's middle rung
-        MF._TILE_BUDGET = (14 * 16 + 70) * 128 * 4
-        assert MF.pick_tile(64, 128) == 16
-        assert MF.pick_group(96, 16, 128) == 16
-        test_macflow_tv_kernel_matches_xla(64, 96)
-        test_macflow_lti_kernel_matches_xla(64, 96)
-    finally:
-        MF._TILE_BUDGET = old
+    cfg, st, rng = _mk(128, 64, seed=9)
+    bx = jnp.asarray(rng.standard_normal((40, 128)), jnp.float32)
+    bh = jnp.asarray(rng.standard_normal((40, 128)) * 0.2, jnp.float32)
+    _, lti8 = stream_decomposed(cfg, st, bx)
+    _, tv8 = stream_decomposed(cfg, st, bx, bh)
+    monkeypatch.setattr(DC, "_XLA_MAC_CHUNK", 3)
+    _, lti3 = stream_decomposed(cfg, st, bx)
+    _, tv3 = stream_decomposed(cfg, st, bx, bh)
+    np.testing.assert_allclose(lti3, lti8, atol=1e-5)
+    np.testing.assert_allclose(tv3, tv8, atol=1e-5)
 
 
-def test_pick_group_bounds():
-    """gb: 32 for long scans within the envelope, halved down to 8 by
-    the geometric gb <= T cap and the scoped-VMEM model."""
-    from opencl_fft_tpu.ops.pallas.macflow import pick_group
+def test_chunked_mac_trims_partial_chunk():
+    """_chunked_mac evaluates ceil(nb/K) chunks and returns exactly nb rows
+    in time order."""
+    from opencl_fft_tpu.ops.decomposed import _XLA_MAC_CHUNK, _chunked_mac
 
-    assert pick_group(8, 512, 512) == 8        # short chunk
-    assert pick_group(64, 512, 512) == 32      # long scan, fits
-    assert pick_group(64, 16, 8192) == 16      # geometric cap gb <= T
-    assert pick_group(64, 8, 16384) == 8       # geometric cap gb <= T
-    assert pick_group(64, 8, 32768) == 8       # VMEM envelope + cap
+    nb, bins = 2 * _XLA_MAC_CHUNK + 3, 4
+
+    def chunk(t0):
+        t = (t0 + jnp.arange(_XLA_MAC_CHUNK))[:, None].astype(jnp.float32)
+        return jnp.broadcast_to(t, (_XLA_MAC_CHUNK, bins)), -jnp.ones(
+            (_XLA_MAC_CHUNK, bins))
+
+    r, i = _chunked_mac(nb, bins, chunk)
+    assert r.shape == (nb, bins) and i.shape == (nb, bins)
+    np.testing.assert_array_equal(np.asarray(r)[:, 0], np.arange(nb))
 
 
-def test_stream_dispatch_macflow_explicit():
-    """pallas="macflow" routes pconv_stream/_tv through the decomposed
-    engine (kernel in interpret mode on CPU) and matches the scan."""
+def test_pconv_stream_is_the_scan():
+    """pconv_stream / pconv_stream_tv are the per-block scan (no other
+    route): they match a plain scan of pconv_step / pconv_step_tv."""
     cfg, st, rng = _mk(128, 16, seed=9)
-    import dataclasses
-    mcfg = dataclasses.replace(cfg, pallas="macflow")
     bx = jnp.asarray(rng.standard_normal((24, 128)), jnp.float32)
     bh = jnp.asarray(rng.standard_normal((24, 128)) * 0.2, jnp.float32)
     _, out_s = _scan_lti(cfg, st, bx)
-    _, out_m = P.pconv_stream(mcfg, st, bx)
-    np.testing.assert_allclose(out_m, out_s, atol=2e-5)
+    _, out_m = P.pconv_stream(cfg, st, bx)
+    np.testing.assert_allclose(out_m, out_s, atol=1e-6)
     _, out_st = _scan_tv(cfg, st, bx, bh)
-    _, out_mt = P.pconv_stream_tv(mcfg, st, bx, bh)
-    np.testing.assert_allclose(out_mt, out_st, atol=2e-5)
+    _, out_mt = P.pconv_stream_tv(cfg, st, bx, bh)
+    np.testing.assert_allclose(out_mt, out_st, atol=1e-6)
 
 
-def test_auto_routing_gates():
-    """auto takes the decomposed engine exactly where no whole-scan
-    kernel fits and the shape is structurally won (off-CPU only)."""
-    cfg = P.PconvConfig(pts=512, nparts=8192)
-    # CPU backend: auto never routes to Mosaic paths
-    assert not cfg._use_decomposed_stream()
+def test_stream_routing_ignores_backend():
+    """The engines pick no route by backend: the traced program of
+    pconv_stream is the same scan whatever jax.default_backend() says."""
+    import functools
     import unittest.mock as mock
-    with mock.patch.object(P.jax, "default_backend", return_value="tpu"):
-        assert P.PconvConfig(
-            pts=512, nparts=8192)._use_decomposed_stream(tv=True)
-        assert P.PconvConfig(
-            pts=8192, nparts=64)._use_decomposed_stream()
-        # covered by the resident whole-scan kernel -> kernel keeps it
-        assert not P.PconvConfig(
-            pts=512, nparts=256)._use_decomposed_stream()
-        # nparts < 8 at huge bins: XLA-MAC decomposed (transform batching)
-        assert P.PconvConfig(
-            pts=32768, nparts=4)._use_decomposed_stream(tv=True)
+
+    cfg, st, rng = _mk(128, 16, seed=10)
+    bx = jnp.asarray(rng.standard_normal((16, 128)), jnp.float32)
+    fn = functools.partial(P.pconv_stream, cfg)
+    cpu = str(jax.make_jaxpr(fn)(st, bx))
+    with mock.patch.object(jax, "default_backend", return_value="gpu"):
+        gpu = str(jax.make_jaxpr(fn)(st, bx))
+    assert cpu == gpu
+    assert "scan" in cpu
 
 
-def test_macflow_lti_batched_matches_single():
-    """The channel-grid kernel == per-channel single-stream kernel."""
-    from opencl_fft_tpu.ops.pallas.macflow import (macflow_lti,
-                                                   macflow_lti_batched)
+def test_offline_batched_matches_single_channel():
+    """The channel-batched offline render == the single-stream offline
+    render per channel."""
+    from opencl_fft_tpu.models.convolver import batched_state, _vmapped_push
 
-    nparts, nb, bins, B = 16, 24, 128, 3
+    pts, nparts, nb, B = 128, 16, 24, 3
+    cfg = P.PconvConfig(pts=pts, nparts=nparts)
     rng = np.random.default_rng(10)
-    rows = nparts - 1 + nb
-    xtl = (jnp.asarray(rng.standard_normal((B, rows, bins)), jnp.float32),
-           jnp.asarray(rng.standard_normal((B, rows, bins)), jnp.float32))
-    h = (jnp.asarray(rng.standard_normal((B, nparts, bins)), jnp.float32),
-         jnp.asarray(rng.standard_normal((B, nparts, bins)), jnp.float32))
-    br, bi = macflow_lti_batched(xtl, h, nb, 2.0, interpret=True)
+    irs = jnp.asarray(rng.standard_normal((B, cfg.cvs)) * 0.2, jnp.float32)
+    blocks = jnp.asarray(rng.standard_normal((nb, B, pts)), jnp.float32)
+    stb = _vmapped_push(cfg)(batched_state(cfg, B), irs)
+    _, outb = P._offline_batched(cfg, stb, blocks)
     for c in range(B):
-        sr, si = macflow_lti((xtl[0][c], xtl[1][c]), (h[0][c], h[1][c]),
-                             nb, 2.0, interpret=True)
-        np.testing.assert_allclose(br[c], sr, atol=1e-5)
-        np.testing.assert_allclose(bi[c], si, atol=1e-5)
+        st = P.push_ir(cfg, P.pconv_init(cfg), irs[c])
+        _, out = P.pconv_offline(cfg, st, blocks[:, c])
+        np.testing.assert_allclose(outb[:, c], out, atol=1e-5)
 
 
 @pytest.mark.parametrize("c", [0, 8])
-def test_macflow_tv_batched_matches_single(c):
-    """The channel-grid TV kernel == per-channel single-stream kernel,
-    at the fresh-stream phase and a general (mod-8) ring phase."""
-    from opencl_fft_tpu.ops.pallas.macflow import (macflow_tv,
-                                                   macflow_tv_batched)
+def test_tv_batched_decomposed_matches_single(c):
+    """The channel-batched TV decomposed engine == the single-stream one
+    per channel, at the fresh-stream phase and a mid-ring phase."""
+    from opencl_fft_tpu.models.convolver import batched_state
+    from opencl_fft_tpu.ops.decomposed import stream_batched_tv_decomposed
 
-    nparts, nb, bins, B = 16, 24, 128, 3
+    pts, nparts, nb, B = 128, 16, 24, 3
+    cfg = P.PconvConfig(pts=pts, nparts=nparts)
     rng = np.random.default_rng(11)
-    rows = nparts - 1 + nb
-    xtl = (jnp.asarray(rng.standard_normal((B, rows, bins)), jnp.float32),
-           jnp.asarray(rng.standard_normal((B, rows, bins)), jnp.float32))
-    htl = (jnp.asarray(rng.standard_normal((B, rows, bins)), jnp.float32),
-           jnp.asarray(rng.standard_normal((B, rows, bins)), jnp.float32))
-    br, bi = macflow_tv_batched(xtl, htl, nb, nparts, 2.0, c=c,
-                                interpret=True)
+    bx = jnp.asarray(rng.standard_normal((c + nb, B, pts)), jnp.float32)
+    bh = jnp.asarray(rng.standard_normal((c + nb, B, pts)) * 0.2, jnp.float32)
+    stb = batched_state(cfg, B)
+    if c:
+        stb, _ = P.pconv_stream_batched_tv(cfg, stb, bx[:c], bh[:c])
+    _, outb = stream_batched_tv_decomposed(cfg, stb, bx[c:], bh[c:])
     for ch in range(B):
-        sr, si = macflow_tv((xtl[0][ch], xtl[1][ch]),
-                            (htl[0][ch], htl[1][ch]),
-                            nb, nparts, 2.0, c=c, interpret=True)
-        np.testing.assert_allclose(br[ch], sr, atol=1e-5)
-        np.testing.assert_allclose(bi[ch], si, atol=1e-5)
+        st = P.pconv_init(cfg)
+        if c:
+            st, _ = _scan_tv(cfg, st, bx[:c, ch], bh[:c, ch])
+        _, out = stream_decomposed(cfg, st, bx[c:, ch], bh[c:, ch])
+        np.testing.assert_allclose(outb[:, ch], out, atol=1e-5)
+
+
+def test_offline_render_deep_ring_matches_scan():
+    """pconv_offline at a deep ring (nparts=64, nb > nparts) from a
+    mid-stream state == the scan, outputs and continued state."""
+    cfg, st, rng = _mk(128, 64, seed=12)
+    st = _primed(cfg, st, rng, 5, tv=False)
+    blocks = jnp.asarray(rng.standard_normal((80, 128)), jnp.float32)
+    st_s, out_s = _scan_lti(cfg, st, blocks)
+    st_o, out_o = P.pconv_offline(cfg, st, blocks)
+    np.testing.assert_allclose(out_o, out_s, atol=2e-5)
+    assert int(st_o.wp) == int(st_s.wp)
+    np.testing.assert_allclose(st_o.spec_x_re, st_s.spec_x_re, atol=2e-5)
+
+
+def test_offline_batched_wide_batch_matches_vmapped_scan():
+    """A wide channel batch through the offline engine == the vmapped
+    per-block scan."""
+    from opencl_fft_tpu.models.convolver import batched_state, _vmapped_push
+
+    pts, nparts, nb, B = 64, 8, 20, 8
+    cfg = P.PconvConfig(pts=pts, nparts=nparts)
+    rng = np.random.default_rng(13)
+    irs = jnp.asarray(rng.standard_normal((B, cfg.cvs)) * 0.2, jnp.float32)
+    blocks = jnp.asarray(rng.standard_normal((nb, B, pts)), jnp.float32)
+    stb = _vmapped_push(cfg)(batched_state(cfg, B), irs)
+    st_s, out_s = P.pconv_stream_batched(cfg, stb, blocks)
+    st_o, out_o = P._offline_batched(cfg, stb, blocks)
+    np.testing.assert_allclose(out_o, out_s, atol=2e-5)
+    assert int(st_o.wp) == int(st_s.wp)
 
 
 def test_batched_tv_chunked_matches_vmapped_scan():
     """pconv_stream_batched_tv_chunked == the vmapped per-block TV scan
     within f32 tolerance, including exact state chaining across chunks
-    (wp AND wp2 walks), on both the kernel and the pure-XLA routes."""
-    import dataclasses
-
+    (wp AND wp2 walks)."""
     from opencl_fft_tpu.models.convolver import batched_state, _vmapped_push
 
     pts, nparts, B, K, nblk = 128, 16, 3, 8, 32
@@ -316,8 +323,7 @@ def test_batched_tv_chunked_matches_vmapped_scan():
     bh = jnp.asarray(rng.standard_normal((nblk, B, pts)) * 0.2, jnp.float32)
 
     st_ref, out_ref = P.pconv_stream_batched_tv(cfg, st0, bx, bh)
-    mcfg = dataclasses.replace(cfg, pallas="macflow")
-    st_c, out_c = P.pconv_stream_batched_tv_chunked(mcfg, st0, bx, bh, K=K)
+    st_c, out_c = P.pconv_stream_batched_tv_chunked(cfg, st0, bx, bh, K=K)
     np.testing.assert_allclose(out_c, out_ref, atol=3e-5)
     # tails are stored unnormalized (scale ~pts): relative tolerance
     np.testing.assert_allclose(st_c.tail, st_ref.tail, atol=2e-4, rtol=2e-4)
@@ -325,22 +331,11 @@ def test_batched_tv_chunked_matches_vmapped_scan():
     np.testing.assert_allclose(st_c.spec_h_re, st_ref.spec_h_re, atol=2e-5)
     assert int(st_c.wp) == int(st_ref.wp)
     assert int(st_c.wp2) == int(st_ref.wp2)
-    # pallas="off": the vmapped gather-MAC chunk branch
-    ocfg = dataclasses.replace(cfg, pallas="off")
-    st_x, out_x = P.pconv_stream_batched_tv_chunked(ocfg, st0, bx, bh, K=K)
-    np.testing.assert_allclose(out_x, out_ref, atol=3e-5)
-    np.testing.assert_allclose(st_x.spec_h_re, st_ref.spec_h_re, atol=2e-5)
-    # pallas="auto" at a resident-kernel shape: delegates to the
-    # per-block engine (measured negative for the chunk engine there)
-    st_a, out_a = P.pconv_stream_batched_tv_chunked(cfg, st0, bx, bh, K=K)
-    np.testing.assert_allclose(out_a, out_ref, atol=3e-5)
 
 
 def test_batched_tv_chunked_off_phase_chaining():
-    """A K=4 chunk size walks wp2 off the mod-8 kernel phase mid-stream:
-    the lax.cond must take the gather branch there and still chain."""
-    import dataclasses
-
+    """A K=4 chunk size walks wp2 through phases that are not multiples
+    of 8 mid-stream; the chunk engine must still chain."""
     from opencl_fft_tpu.models.convolver import batched_state, _vmapped_push
 
     pts, nparts, B, K, nblk = 128, 16, 2, 4, 24
@@ -351,8 +346,7 @@ def test_batched_tv_chunked_off_phase_chaining():
     bx = jnp.asarray(rng.standard_normal((nblk, B, pts)), jnp.float32)
     bh = jnp.asarray(rng.standard_normal((nblk, B, pts)) * 0.2, jnp.float32)
     st_ref, out_ref = P.pconv_stream_batched_tv(cfg, st0, bx, bh)
-    mcfg = dataclasses.replace(cfg, pallas="macflow")
-    st_c, out_c = P.pconv_stream_batched_tv_chunked(mcfg, st0, bx, bh, K=K)
+    st_c, out_c = P.pconv_stream_batched_tv_chunked(cfg, st0, bx, bh, K=K)
     np.testing.assert_allclose(out_c, out_ref, atol=3e-5)
     assert int(st_c.wp2) == int(st_ref.wp2)
 
@@ -360,8 +354,6 @@ def test_batched_tv_chunked_off_phase_chaining():
 def test_batched_chunked_matches_vmapped_scan():
     """pconv_stream_batched_chunked == the vmapped per-block scan within
     f32 tolerance, including exact state chaining across chunks."""
-    import dataclasses
-
     from opencl_fft_tpu.models.convolver import batched_state, _vmapped_push
 
     pts, nparts, B, K, nblk = 128, 16, 3, 8, 32
@@ -372,42 +364,8 @@ def test_batched_chunked_matches_vmapped_scan():
     blocks = jnp.asarray(rng.standard_normal((nblk, B, pts)), jnp.float32)
 
     st_ref, out_ref = P.pconv_stream_batched(cfg, st0, blocks)
-    mcfg = dataclasses.replace(cfg, pallas="macflow")
-    st_c, out_c = P.pconv_stream_batched_chunked(mcfg, st0, blocks, K=K)
+    st_c, out_c = P.pconv_stream_batched_chunked(cfg, st0, blocks, K=K)
     np.testing.assert_allclose(out_c, out_ref, atol=3e-5)
     np.testing.assert_allclose(st_c.tail, st_ref.tail, atol=2e-4)
     np.testing.assert_allclose(st_c.spec_x_re, st_ref.spec_x_re, atol=2e-5)
     assert int(st_c.wp) == int(st_ref.wp)
-    # pallas="off": the pure-XLA offline MAC chunk branch
-    ocfg = dataclasses.replace(cfg, pallas="off")
-    st_x, out_x = P.pconv_stream_batched_chunked(ocfg, st0, blocks, K=K)
-    np.testing.assert_allclose(out_x, out_ref, atol=3e-5)
-    np.testing.assert_allclose(st_x.spec_x_re, st_ref.spec_x_re, atol=2e-5)
-    # pallas="auto" under the VMEM-carry threshold: delegates to the
-    # per-block engine (measured faster there)
-    st_a, out_a = P.pconv_stream_batched_chunked(cfg, st0, blocks, K=K)
-    np.testing.assert_allclose(out_a, out_ref, atol=3e-5)
-
-
-def test_offline_impl_dispatch():
-    """chunkmac keeps its measured territory; macflow takes wide batches
-    and deep nparts (off-CPU)."""
-    import unittest.mock as mock
-    with mock.patch.object(P.jax, "default_backend", return_value="tpu"):
-        small = P.PconvConfig(pts=512, nparts=256)
-        assert P._offline_impl(small, 1) == "chunkmac"
-        assert P._offline_impl(small, 64) == "macflow"
-        deep = P.PconvConfig(pts=512, nparts=8192)
-        assert P._offline_impl(deep, 1) == "macflow"
-    assert P._offline_impl(P.PconvConfig(pts=512, nparts=256), 1) is None
-
-
-def test_fits_macflow_gate():
-    from opencl_fft_tpu.ops.pallas.macflow import fits_macflow
-    assert fits_macflow(8192, 512)
-    assert fits_macflow(1024, 2048)
-    assert fits_macflow(512, 8192)
-    assert fits_macflow(8, 32768)
-    assert not fits_macflow(4, 512)       # nparts < 8
-    assert not fits_macflow(24, 512)      # not a power of two
-    assert not fits_macflow(16, 192)      # bins not lane-aligned

@@ -1,7 +1,6 @@
 """float64 paths — the analog of the reference's -DUSE_DOUBLE build flag
-(macos-build.sh:5, MYFLT width). CPU-only: the TPU backend has no f64
-kernels, so the double-width option is validated on the (numerically
-identical) CPU backend under jax_enable_x64."""
+(macos-build.sh:5, MYFLT width), validated here on the CPU backend under
+jax_enable_x64. The GPU backend runs them too (chip_smoke.py, phase f64)."""
 
 import numpy as np
 import pytest

@@ -120,9 +120,8 @@ def test_bluestein_non_pow2(n):
 
 
 def test_out_t_leaf_variant(monkeypatch):
-    """The transposed-output second-leaf variant (off by default — measured
-    slower on v5e, see ops/fft.py _OUT_T_MIN_N2) stays correct so the A/B
-    harness (tools/fft_ab.py) can keep re-evaluating it."""
+    """The transposed-output second-leaf variant (off by default, see
+    ops/fft.py _OUT_T_MIN_N2) stays correct."""
     monkeypatch.setattr(fft, "_OUT_T_MIN_N2", 64)
     for n in (4096, 65536):
         x = randc((2, n))
@@ -133,13 +132,12 @@ def test_out_t_leaf_variant(monkeypatch):
 
 
 def test_gauss_leaf_variant(monkeypatch):
-    """The Gauss 3-matmul complex leaf (adopted per-root where measured
-    faster, ops/fft.py _GAUSS_BY_ROOT) stays correct both forced-on at
-    every root and forced-off, and both agree with numpy — covers the
-    A/B harness toggles (tools/fft_gauss_ab.py) and the adopted table."""
+    """The Gauss 3-matmul complex leaf (used for Precision.HIGH leaves >=
+    _GAUSS_MIN_N, off by default) stays correct both forced-on and
+    forced-off, and both agree with numpy."""
+    monkeypatch.setattr(fft, "_FAST_MODE", "on")   # HIGH leaves only
     for gauss_min, combo_t in ((64, False), (64, True), (1 << 30, False)):
         monkeypatch.setattr(fft, "_GAUSS_MIN_N", gauss_min)
-        monkeypatch.setattr(fft, "_GAUSS_BY_ROOT", {})
         if combo_t:     # gauss + fused-transpose second leaf compose
             monkeypatch.setattr(fft, "_OUT_T_MIN_N2", 64)
         for n in (4096, 65536):
@@ -151,7 +149,7 @@ def test_gauss_leaf_variant(monkeypatch):
 
 
 def test_deterministic_rerun():
-    """TPU reductions are deterministic (vs the reference's CAS-loop atomics,
+    """XLA reductions are deterministic (vs the reference's CAS-loop atomics,
     cl_conv_kernels.h:29-44, which are order-nondeterministic): identical
     inputs must give bitwise-identical outputs."""
     x = randc((8, 256))
@@ -160,31 +158,28 @@ def test_deterministic_rerun():
     assert np.array_equal(a, b)
 
 
-def test_vmem_impl_via_dispatcher():
-    """impl='vmem' routes through fft_split to the VMEM Pallas kernel
-    (interpret mode on CPU) and matches the mm path within the bf16x3
-    budget. Auto mode never picks it on CPU (gated to TPU backends)."""
+def test_auto_route_matches_numpy_roundtrip():
+    """impl='auto' (jnp.fft) through the fft_split dispatcher matches
+    numpy forward and inverse at n=2^13, batch 2."""
     n = 1 << 13
     x = randc((2, n))
-    got = np.asarray(fft.fft_unnormalized(x, -1, "vmem"))
+    got = np.asarray(fft.fft_unnormalized(x, -1))
     ref = np.fft.fft(x)
     scale = np.max(np.abs(ref))
-    np.testing.assert_allclose(got, ref, atol=1e-4 * scale, rtol=0)
-    inv = np.asarray(fft.fft_unnormalized(got, +1, "vmem")) / n
-    np.testing.assert_allclose(inv, x, atol=2e-4 * np.max(np.abs(x)), rtol=0)
-    # auto-mode gate: an array that satisfies EVERY data condition
-    # (supported size, large working set, f32) must still be refused on
-    # the CPU backend — the backend check alone decides here
-    big = jax.numpy.zeros((64, 1 << 16), jax.numpy.float32)
-    assert not fft._use_vmem_kernel((big, big), -1)
+    np.testing.assert_allclose(got, ref, atol=1e-5 * scale, rtol=0)
+    inv = np.asarray(fft.fft_unnormalized(got, +1)) / n
+    np.testing.assert_allclose(inv, x, atol=1e-5 * np.max(np.abs(x)), rtol=0)
 
 
-def test_vmem_impl_rejects_f64():
+def test_auto_route_keeps_f64():
+    """Under x64 the auto route stays in float64 (complex128)."""
     x = (RNG.standard_normal((1, 1 << 13))
          + 1j * RNG.standard_normal((1, 1 << 13)))
     with jax.enable_x64():
-        with pytest.raises(ValueError, match="float32-only"):
-            fft.fft_unnormalized(x.astype(np.complex128), -1, "vmem")
+        got = fft.fft_unnormalized(x.astype(np.complex128), -1)
+        assert got.dtype == np.complex128
+        np.testing.assert_allclose(np.asarray(got), np.fft.fft(x),
+                                   atol=1e-9 * np.abs(x).sum(), rtol=0)
 
 
 @pytest.mark.parametrize("impl", IMPLS + ["auto"])
@@ -200,16 +195,15 @@ def test_fused_scale_matches_explicit_multiply(impl, n):
         np.asarray(got), s * base, atol=1e-6 * np.max(np.abs(base)), rtol=0)
 
 
-def test_fused_scale_vmem_kernel_epilogue():
-    """The pallas kernels apply scale inside the epilogue (interpret
-    mode exercises the same kernel body)."""
+def test_fused_scale_auto_route():
+    """The auto route applies scale with the transform (n=2^13, s=1/n)."""
     n = 1 << 13
     x = randc((2, n))
     s = 1.0 / n
     base = np.fft.fft(x) * s
-    got = to_complex(fft.fft_split(from_complex(x), -1, "vmem", scale=s))
+    got = to_complex(fft.fft_split(from_complex(x), -1, "auto", scale=s))
     np.testing.assert_allclose(
-        np.asarray(got), base, atol=1e-4 * np.max(np.abs(base)) * n * s, rtol=0)
+        np.asarray(got), base, atol=1e-5 * np.max(np.abs(base)), rtol=0)
 
 
 def test_fused_scale_scalar_size_one():
@@ -219,37 +213,11 @@ def test_fused_scale_scalar_size_one():
     np.testing.assert_allclose(np.asarray(got[1]), [1.5])
 
 
-def test_inner_plan_overrides_scope():
-    """_INNER_OVERRIDES applies to non-root factors only: a dense-leaf
-    override for 512 changes the tree inside a 2^16 transform but leaves
-    the standalone 512 plan (and its numerics) untouched."""
-    import numpy as np
-
-    import jax.numpy as jnp
-    from opencl_fft_tpu.ops import fft as F
-
-    rng = np.random.default_rng(5)
-    assert not F._is_leaf(512, 1 << 20)            # PLANS[512] recurses
-    F._INNER_OVERRIDES[512] = 0
-    try:
-        assert F._is_leaf(512, 1 << 20, inner=True)
-        assert not F._is_leaf(512, 1 << 20)        # root unaffected
-        n = 1 << 13                                # contains a 512 inner?
-        x = rng.standard_normal(n).astype(np.float32)
-        re, im = F.fft_split((jnp.asarray(x), jnp.zeros(n, jnp.float32)),
-                             -1, "mm")
-        ref = np.fft.fft(x)
-        err = np.abs(np.asarray(re) + 1j * np.asarray(im) - ref).max()
-        assert err / np.abs(ref).max() < 1e-4
-    finally:
-        del F._INNER_OVERRIDES[512]
-
-
 def test_turbo_mode_policy():
     """"turbo" selects pure-bf16 leaves (>=64) but never touches the
     convolution engines (exact_precision overrides it) nor small leaves,
     and restores cleanly. On CPU DEFAULT == f32, so this pins the policy
-    plumbing; tpu_smoke pins the on-chip error budget."""
+    plumbing; chip_smoke.py measures the error on the GPU."""
     import jax as _jax
     import jax.numpy as jnp
 
@@ -263,9 +231,6 @@ def test_turbo_mode_policy():
         with F.exact_precision():
             assert F._leaf_precision(128) == _jax.lax.Precision.HIGHEST
         assert F._leaf_precision(128) == _jax.lax.Precision.DEFAULT
-        # the bf16x3 VMEM kernel must not be auto-selected under turbo
-        re = jnp.zeros((64, 1 << 18), jnp.float32)
-        assert not F._use_vmem_kernel((re, re), -1)
         # numerically correct end-to-end (exact on CPU where DEFAULT=f32)
         x = RNG.standard_normal((2, 4096)).astype(np.float32)
         r, i = F.fft_split((jnp.asarray(x), jnp.zeros_like(jnp.asarray(x))),

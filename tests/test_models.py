@@ -101,12 +101,11 @@ def test_convolver_stream_chunked_matches_per_block():
 
 
 def test_convolver_render_matches_stream():
-    """Offline render (chunk-MAC kernel, no sequential scan) == streamed
-    per-block output within f32 tolerance, and streaming continues
-    correctly from the render-produced state."""
+    """Offline render (batched transforms + gather-MAC, no sequential
+    scan) == streamed per-block output within f32 tolerance, and
+    streaming continues correctly from the render-produced state."""
     pts, nparts, batch = 128, 8, 2
-    cfg = P.PconvConfig.for_ir_length(pts * nparts, pts, pallas="on")
-    assert P._use_chunkmac(cfg)
+    cfg = P.PconvConfig.for_ir_length(pts * nparts, pts)
     irs = (RNG.standard_normal((batch, cfg.cvs)) * 0.2).astype(np.float32)
     blocks = RNG.standard_normal((12, batch, pts)).astype(np.float32)
 
@@ -139,23 +138,27 @@ def test_batched_state_honors_ring_dtype():
     assert batched_state(cfg32, 3).spec_x_re.dtype == jnp.float32
 
 
-def test_batched_engine_forces_xla_step_for_kernel_routed_configs():
-    """The Pallas block-step/MAC kernels are single-stream (their batched
-    Mosaic lowering is rejected — observed as a bench crash at
-    (nparts=256, bins=512) once _tuned.WINNERS routed it); the batched
-    engines must run the XLA step regardless of cfg.pallas."""
+def test_batched_engine_step_matches_single_stream():
+    """The batched engine's vmapped step (shared ring pointers) equals
+    the single-stream pconv_step per channel."""
     import jax.numpy as jnp
     import numpy as np
     from opencl_fft_tpu.models.convolver import Convolver
     from opencl_fft_tpu.ops import pconv as P
 
-    cfg = P.PconvConfig.for_ir_length(64 * 8, 64, pallas="block")
+    cfg = P.PconvConfig.for_ir_length(64 * 8, 64)
     rng = np.random.default_rng(5)
+    irs = jnp.asarray(rng.standard_normal((3, 64 * 8)), jnp.float32)
+    x = jnp.asarray(rng.standard_normal((3, 64)), jnp.float32)
     conv = Convolver(cfg, batch=3)
-    conv.push_ir(jnp.asarray(rng.standard_normal((3, 64 * 8)), jnp.float32))
-    out = conv.step(jnp.asarray(rng.standard_normal((3, 64)), jnp.float32))
+    conv.push_ir(irs)
+    out = np.asarray(conv.step(x))
     assert out.shape == (3, 64)
-    assert np.isfinite(np.asarray(out)).all()
+    for c in range(3):
+        st = P.push_ir(cfg, P.pconv_init(cfg), irs[c])
+        _, ref = P.pconv_step(cfg, st, x[c])
+        np.testing.assert_allclose(out[c], np.asarray(ref), rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
 
 
 def test_batched_stream_accepts_per_channel_ring_pointers():
